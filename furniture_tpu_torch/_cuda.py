@@ -3,8 +3,8 @@
 Each ``csrc/*.cu`` source has a plain C interface. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``_build/``
 (listed in ``.gitignore``) at first use, and loaded with ``ctypes``. The
-library's name carries a hash of the source and the flags, so an edited
-source is rebuilt. The ``-Xptxas -v`` register and shared-memory report is
+library's name carries a hash of the source, of the headers beside it
+(``csrc/*.cuh``) and of the flags, so an edited source is rebuilt. The ``-Xptxas -v`` register and shared-memory report is
 kept beside the library (``.log``).
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -48,6 +48,8 @@ def nvcc_path() -> str:
 
 def library_path(source: Path) -> Path:
     h = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -3,8 +3,9 @@
 The port's counterpart of ``furniture_tpu.api``: the env registry
 (``register_env``/``get_env``, gym-id parity) and ``make_vec_env`` returning
 a :class:`VecEnv`, a batch of envs on one device with auto-reset. The
-single-env gym wrapper with rendering and the arm factories are not ported
-yet.
+registry holds the cursor env and the five arm agents; the single-env gym
+wrapper with rendering and the dense, generator and toy-table ids wait for
+their envs.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Callable
 import torch
 
 from .config import EnvConfig
+from .envs.arm import make_arm_env
 from .envs.assembly import tree_where
 from .envs.cursor import CursorEnv, resolve_device
 from .models import furniture_names
@@ -83,8 +85,9 @@ def _resolve_config(kwargs) -> EnvConfig:
 
 
 def make_vec_env(name: str, num_envs: int, seed: int = 0, device=None, **kwargs) -> VecEnv:
-    """``make_vec_env("IKEACursor-v0", 4096)`` — config fields as keywords;
-    ``device`` defaults to the card."""
+    """``make_vec_env("IKEACursor-v0", 4096)`` or
+    ``make_vec_env("IKEASawyer-v0", 512, control_type="impedance")``: config
+    fields as keywords; ``device`` defaults to the card."""
     factory = get_env(name)
     config = _resolve_config(kwargs)
     return VecEnv(factory, config, num_envs, seed=seed, device=device)
@@ -96,3 +99,7 @@ def _cursor_factory(config: EnvConfig, device=None) -> CursorEnv:
 
 register_env("FurnitureCursorEnv", _cursor_factory)
 register_env("IKEACursor-v0", _cursor_factory)
+
+for _agent in ("Sawyer", "Panda", "Jaco", "Fetch", "Baxter"):
+    register_env(f"Furniture{_agent}Env", make_arm_env(_agent))
+    register_env(f"IKEA{_agent}-v0", make_arm_env(_agent))

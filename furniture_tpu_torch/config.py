@@ -3,10 +3,15 @@
 The port's own copy of ``furniture_tpu.config``: the same frozen
 dataclasses with the same fields and defaults, so a configuration means the
 same thing in both packages. The port ignores ``SimConfig.use_pallas``,
-``mega_block`` and the arm fields: its batched physics always runs the
-free-part kernel (``physics/megakernel.py``) on CUDA tensors and that
-kernel's plain PyTorch version on CPU tensors. They stay for parity of the
-dataclass.
+``mega_block`` and ``arm_mega_block``, which stay for parity of the
+dataclass: its batched physics always runs the CUDA kernels
+(``physics/megakernel.py``, ``physics/arm_megakernel.py``) on CUDA tensors
+and their plain PyTorch versions on CPU tensors. The arm fields
+(``arm_lane_budget``, ``robot_coupling``, ``robot_coupling_clamp``,
+``gripper_squeeze``, ``grip_press_vel``, ``held_vel_clamp``,
+``held_angvel_clamp``; ``EnvConfig.agent_type``, ``control_type``,
+``action_repeat``, ``move_speed``, ``rotate_speed``, ``agent_xyz_rand``)
+mean what they mean in the JAX package.
 
 Defaults mirror the reference's argparse defaults exactly (citations inline).
 """

@@ -3,7 +3,8 @@
 Welded parts are merged into composite rigid bodies selected by the per-env
 ``group`` label array. ``engine`` is the plain PyTorch version of the
 substep; ``megakernel`` wraps the CUDA kernel that runs whole control steps
-on the card.
+of free parts on the card, ``arm_megakernel`` the one that runs whole
+control steps of arm and parts coupled.
 """
 
 from .state import PartState, init_state  # noqa: F401

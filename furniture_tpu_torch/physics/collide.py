@@ -8,7 +8,9 @@ contact has a fixed lane and a validity mask.
 * geom vs floor plane: the geom's 8 box corners;
 * geom vs geom: vertex-in-box tests both ways (8+8 candidate points/pair);
 * geom vs geom edge-edge: one SAT lane per pair (``edge_contacts``) covering
-  crossing edges, emitted only where the pair's corner lanes are empty.
+  crossing edges, emitted only where the pair's corner lanes are empty;
+* part geom vs robot gripper geom (``robot_contacts``): sample points both
+  ways, the robot side a kinematic collider with a prescribed velocity.
 
 Batched tensors lead with the env dimension B; per-lane constants (part
 indices, friction, solref betas) are static and unbatched.
@@ -32,12 +34,30 @@ _CORNER_SIGNS = np.array(
     ]
 )  # [8,3]
 
+# corners + 6 face centers + box center: the denser sample set used for
+# gripper↔part contacts, where edge-edge and face-center configurations
+# (a rotated fingertip pad pressing a flat part face) dominate
+_SAMPLE_SIGNS15 = np.concatenate(
+    [
+        _CORNER_SIGNS,
+        np.array(
+            [
+                [1.0, 0, 0], [-1.0, 0, 0],
+                [0, 1.0, 0], [0, -1.0, 0],
+                [0, 0, 1.0], [0, 0, -1.0],
+                [0.0, 0, 0],
+            ]
+        ),
+    ]
+)  # [15,3]
+
 
 class Contacts(NamedTuple):
     """A fixed-capacity contact set for a batch of envs.
 
-    The kinematic-collider fields of the JAX package (``vel_b``, robot
-    lanes) belong to the arm path and are not part of this set yet."""
+    ``vel_b`` is the prescribed world velocity of the b side at the contact
+    point for kinematic colliders (robot gripper geoms, ``part_b == -1``);
+    ``None`` stands for zero (floor and part-part lanes)."""
 
     point: torch.Tensor     # [B,K,3] world position
     normal: torch.Tensor    # [B,K,3] world normal (pushes part_a along +n)
@@ -47,6 +67,7 @@ class Contacts(NamedTuple):
     part_b: torch.Tensor    # [K] part index, -1 = static world (floor)
     friction: torch.Tensor  # [K]
     beta: torch.Tensor      # [K] per-lane Baumgarte fraction (solref-derived)
+    vel_b: torch.Tensor | None = None  # [B,K,3] prescribed b-side velocity
 
 
 # MuJoCo default solref for geoms that do not set one
@@ -67,7 +88,8 @@ def solref_beta(solref_a, solref_b, dt: float, cap: float) -> np.ndarray:
 def attach_betas(model_np: dict, cfg_sim) -> None:
     """Precompute per-lane solref betas into the tables dict (idempotent).
 
-    Adds ``_floor_beta [G]`` and ``_pair_beta [NP]``."""
+    Adds ``_floor_beta [G]``, ``_pair_beta [NP]`` and (when robot pairs are
+    present) ``_robot_beta [NPr]``."""
     key = (float(cfg_sim.timestep), float(cfg_sim.baumgarte))
     if model_np.get("_beta_key") == key:
         return
@@ -87,6 +109,18 @@ def attach_betas(model_np: dict, cfg_sim) -> None:
         )
     else:
         model_np["_pair_beta"] = np.zeros(0, np.float32)
+    rpairs = model_np.get("_robot_pairs")
+    if rpairs is not None and len(rpairs):
+        rsr = np.asarray(
+            model_np["robot_np"].get(
+                "geom_solref",
+                np.tile(_DEFAULT_SOLREF, (int(rpairs[:, 0].max()) + 1, 1)),
+            ),
+            np.float64,
+        )
+        model_np["_robot_beta"] = solref_beta(
+            sr[rpairs[:, 1]], rsr[rpairs[:, 0]], dt, cap
+        )
     model_np["_beta_key"] = key
 
 
@@ -246,6 +280,12 @@ def pair_contacts(tt, pos, quat, group, slop: float) -> Contacts:
 
 def concat_contacts(a: Contacts, b: Contacts) -> Contacts:
     """Lane-wise concatenation (batched fields on dim 1, static on dim 0)."""
+    if a.vel_b is None and b.vel_b is None:
+        vel_b = None
+    else:
+        va = torch.zeros_like(a.point) if a.vel_b is None else a.vel_b
+        vb = torch.zeros_like(b.point) if b.vel_b is None else b.vel_b
+        vel_b = torch.cat([va, vb], 1)
     return Contacts(
         point=torch.cat([a.point, b.point], 1),
         normal=torch.cat([a.normal, b.normal], 1),
@@ -255,6 +295,80 @@ def concat_contacts(a: Contacts, b: Contacts) -> Contacts:
         part_b=torch.cat([a.part_b, b.part_b]),
         friction=torch.cat([a.friction, b.friction]),
         beta=torch.cat([a.beta, b.beta]),
+        vel_b=vel_b,
+    )
+
+
+def robot_torch_tables(model_np: dict, device) -> dict:
+    """Device copies of the flat per-lane robot tables
+    (``engine.robot_contact_tables``; call after :func:`attach_betas`)."""
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    rnp = model_np["robot_np"]
+    beta = model_np["_robot_beta"][model_np["_rl_pair"]]
+    return {
+        "rg": i64(model_np["_rl_rgeom"]),
+        "pg": i64(model_np["_rl_pgeom"]),
+        "signs": f32(model_np["_rl_sign"]),
+        "r_sizes": f32(rnp["_box_sizes"]),
+        "r_fric": f32(rnp["geom_friction"]),
+        "beta": f32(np.concatenate([beta, beta])),
+    }
+
+
+def _sample_in_box(point, box_pos, box_quat, box_size, slop: float):
+    """World ``point`` against a box: (depth, inside, outward face normal of
+    the least-penetrated axis, in the world frame)."""
+    loc = T.quat_rotate(T.quat_inv(box_quat), point - box_pos)
+    pen = box_size - torch.abs(loc)
+    inside = torch.all(pen > -slop, dim=-1)
+    depth, ax = torch.min(pen, dim=-1)          # first minimum, as jnp.argmin
+    sign = torch.sign(torch.gather(loc, -1, ax[..., None]))[..., 0]
+    n_local = torch.nn.functional.one_hot(ax, 3).to(point.dtype) * sign[..., None]
+    return depth, inside, T.quat_rotate(box_quat, n_local)
+
+
+def robot_contacts(tt, rt, pos, quat, rg_pos, rg_quat, rg_vel, rg_angvel, slop: float) -> Contacts:
+    """Part geoms vs robot gripper geoms (kinematic colliders), batched.
+
+    The robot side is treated as infinitely heavy: the part solver sees a
+    prescribed contact-point velocity instead of b-side inverse mass.
+    ``tt``/``rt`` are :func:`torch_tables`/:func:`robot_torch_tables`;
+    ``rg_pos/rg_quat`` [B,RG,3/4] are the world poses of the robot collision
+    geoms this substep, ``rg_vel/rg_angvel`` [B,RG,3] the world velocity of
+    each geom center and its body's angular velocity. Lanes: side 1 (part
+    sample points in the robot box), then side 2 (robot sample points in
+    the part box), ``L`` each."""
+    sizes = tt["sizes"]
+    wpos, wquat = _geom_world(tt, pos, quat)
+    rg, pg, signs = rt["rg"], rt["pg"], rt["signs"]
+    r_sizes = rt["r_sizes"]
+
+    # side 1: part-geom sample points inside the robot box; the normal
+    # pushes the part out of the robot box
+    c_p = wpos[:, pg] + T.quat_rotate(wquat[:, pg], signs * sizes[pg])
+    d_p, in_p, n_p = _sample_in_box(c_p, rg_pos[:, rg], rg_quat[:, rg], r_sizes[rg], slop)
+    # side 2: robot-geom sample points inside the part box; the part's face
+    # normal pushes the robot point out, flipped to act on the part
+    c_r = rg_pos[:, rg] + T.quat_rotate(rg_quat[:, rg], signs * r_sizes[rg])
+    d_r, in_r, n_r = _sample_in_box(c_r, wpos[:, pg], wquat[:, pg], sizes[pg], slop)
+
+    point = torch.cat([c_p, c_r], 1)
+    pa = tt["geom_part"][pg].repeat(2)
+    lane_fric = torch.maximum(tt["geom_friction"][pg], rt["r_fric"][rg])
+    # prescribed velocity of the robot surface at each contact point
+    rg2 = torch.cat([rg, rg])
+    vel_b = rg_vel[:, rg2] + T.cross(rg_angvel[:, rg2], point - rg_pos[:, rg2])
+    return Contacts(
+        point=point,
+        normal=torch.cat([n_p, -n_r], 1),
+        depth=torch.cat([d_p, d_r], 1),
+        mask=torch.cat([in_p, in_r], 1),
+        part_a=pa,
+        part_b=torch.full_like(pa, -1),
+        friction=lane_fric.repeat(2),
+        beta=rt["beta"],
+        vel_b=vel_b,
     )
 
 

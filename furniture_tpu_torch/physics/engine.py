@@ -8,7 +8,9 @@ label array.
 This module is the **plain PyTorch version** of the free-part kernel
 (``physics/megakernel.py``, ``physics/csrc/megakernel.cu``): the kernel's
 wrapper runs it for CPU tensors, and the tests and ``chip_smoke.py`` hold
-the kernel against it.
+the kernel against it. With ``extra_contacts`` (the robot gripper lanes of
+``collide.robot_contacts``) the same substep is the part half of the arm
+kernel's plain version (``physics/arm_megakernel.py``).
 
 Shapes: B envs, P parts, K contact lanes (static capacity).
 """
@@ -20,6 +22,8 @@ import torch
 
 from .. import transforms as T
 from .collide import (
+    _CORNER_SIGNS,
+    _SAMPLE_SIGNS15,
     Contacts,
     attach_betas,
     concat_contacts,
@@ -35,6 +39,10 @@ from .state import PartState, zero_vel
 # persistent contact can warm-start with well above its share of the weight
 # impulse, while one-substep impact spikes are discarded
 WARM_CAP_ACC = 200.0
+# robot (kinematic-finger) lanes carry a tighter cap: a stale over-applied
+# impulse between two stiff kinematic pads grows into an oscillation that
+# ejects held parts
+ROBOT_WARM_CAP_ACC = WARM_CAP_ACC * 0.15
 
 
 def _inv3(a):
@@ -112,10 +120,14 @@ def _solve_contacts(
     relaxation: float,
     slop: float,
     lam0,
+    warm_cap=None,
 ):
     """Impulse-accumulating mass-split Jacobi solve, warm-started from
-    ``lam0`` [B,K,3] (capped at ``WARM_CAP_ACC``). Returns the updated group
-    velocities and the converged ``lam`` for the next substep."""
+    ``lam0`` [B,K,3], capped at ``WARM_CAP_ACC`` or, per lane, at
+    ``warm_cap`` [K]. Lanes with ``part_b == -1`` and a ``vel_b`` are
+    kinematic colliders moving at that prescribed velocity. Returns the
+    updated group velocities, the converged ``lam`` for the next substep
+    and the impulse [B,K,3] each lane applied to its part a."""
     fmask = (c.mask & (c.depth > -slop)).to(torch.float32)          # [B,K]
     has_b = c.part_b >= 0                                          # [K]
     hb = has_b.to(torch.float32)
@@ -179,6 +191,8 @@ def _solve_contacts(
         lv, av = apply(lam)
         va = lv[:, pa] + T.cross(av[:, pa], r_a)
         vb = (lv[:, pb] + T.cross(av[:, pb], r_b)) * hb[:, None]
+        if c.vel_b is not None:
+            vb = vb + c.vel_b
         v_rel = va - vb
         vd = torch.sum(v_rel[:, :, None, :] * dirs, dim=-1)         # [B,K,3]
         target = torch.stack([vd[..., 0] + bias, vd[..., 1], vd[..., 2]], -1)
@@ -192,7 +206,7 @@ def _solve_contacts(
 
     # warm start capped at a resting-contact scale: a stale impact impulse
     # re-applied as the initial guess would launch the part
-    cap = WARM_CAP_ACC * inv_w[..., 0] * dt
+    cap = (WARM_CAP_ACC if warm_cap is None else warm_cap) * inv_w[..., 0] * dt
     ln0 = torch.minimum(lam0[..., 0], cap)
     mf0 = (fric * ln0)[..., None]
     lam = torch.cat(
@@ -201,7 +215,8 @@ def _solve_contacts(
     for _ in range(iters):
         lam = body(lam)
     lv, av = apply(lam)
-    return lv, av, lam
+    imp = torch.sum(lam[..., None] * dirs, dim=2) * fmask[..., None]
+    return lv, av, lam, imp
 
 
 def _integrate(state: PartState, g_com, dt: float) -> PartState:
@@ -252,7 +267,11 @@ def make_substep(model_np, cfg_sim, device):
     slop = cfg_sim.contact_slop
     NP = len(model_np["_pairs"])
 
-    def substep(state: PartState, group, gravity_scale, lam_warm):
+    def substep(state: PartState, group, gravity_scale, lam_warm, extra_contacts=None):
+        """``extra_contacts`` (a prebuilt :class:`Contacts`, the robot
+        gripper lanes) are appended to the floor, pair and SAT lanes with
+        the tighter robot warm cap; their impulses are then returned as a
+        third value."""
         member, g_com, g_inv_mass, g_inv_inertia = _group_aggregates(pt, state, group)
         lin_vel = state.lin_vel.clone()
         lin_vel[..., 2] = lin_vel[..., 2] + dt * cfg_sim.gravity * gravity_scale
@@ -267,8 +286,17 @@ def make_substep(model_np, cfg_sim, device):
         )
         ec = edge_contacts(tt, state.pos, state.quat, group, slop, corner_hit=ch)
         contacts = concat_contacts(fc, concat_contacts(pc, ec))
+        warm_cap = None
+        if extra_contacts is not None:
+            n_base = contacts.depth.shape[1]
+            n_extra = extra_contacts.depth.shape[1]
+            contacts = concat_contacts(contacts, extra_contacts)
+            warm_cap = torch.cat([
+                torch.full((n_base,), WARM_CAP_ACC, device=lin_vel.device),
+                torch.full((n_extra,), ROBOT_WARM_CAP_ACC, device=lin_vel.device),
+            ])
 
-        lv, av, lam = _solve_contacts(
+        lv, av, lam, imp = _solve_contacts(
             contacts,
             group,
             g_com,
@@ -281,6 +309,7 @@ def make_substep(model_np, cfg_sim, device):
             cfg_sim.relaxation,
             slop,
             lam_warm,
+            warm_cap,
         )
         # safety velocity clamp (bounds energy so lanes never NaN)
         lv = torch.clamp(lv, -cfg_sim.max_velocity, cfg_sim.max_velocity)
@@ -288,10 +317,13 @@ def make_substep(model_np, cfg_sim, device):
         state = state._replace(lin_vel=lv, ang_vel=av)
         state = _integrate(state, g_com, dt)
         state = _floor_projection(tt, state, member, slop)
+        if extra_contacts is not None:
+            return state, lam, imp[:, n_base:]
         return state, lam
 
     # 8 floor lanes per geom + 16 vertex + 1 SAT edge lane per pair
     substep.n_base_lanes = 8 * len(model_np["geom_part"]) + 17 * NP
+    substep.tables = tt
     return substep
 
 
@@ -329,3 +361,79 @@ def physics_tables(model) -> dict:
     out["part_com"] = np.asarray(model.part_com, dtype=np.float32)
     out["part_inertia"] = np.asarray(model.part_inertia, dtype=np.float32)
     return out
+
+
+def robot_contact_tables(tables: dict, robot, lane_budget: int = 1700) -> dict:
+    """Static tables for robot↔part contact coupling.
+
+    Pairs every gripper-side robot geom (``CompiledRobot.hand_geoms``) with
+    every part collision geom. Sample sets are per robot geom, densified in
+    tiers under ``lane_budget`` (the total lane count K): all hand geoms at
+    the 15-point set if that fits, else all finger geoms, else fingertips
+    only, else 8 corners everywhere. Lanes are emitted as flat per-lane
+    tables (``_rl_*``): side 1 (part-geom sample points vs robot box) first,
+    then side 2 (robot-geom sample points vs part box). The plain narrow
+    phase (``collide.robot_contacts``) and the arm kernel read these tables.
+    """
+    hand = np.flatnonzero(robot.hand_geoms)
+    finger = set()
+    for arm in robot.arms:
+        finger |= set(np.asarray(robot.finger_geoms_l[arm]).tolist())
+        finger |= set(np.asarray(robot.finger_geoms_r[arm]).tolist())
+    part_geoms = np.arange(len(tables["geom_part"]))
+    pairs = np.array(
+        [(r, p) for r in hand for p in part_geoms], dtype=np.int32
+    ).reshape(-1, 2)
+    names = list(getattr(robot, "geom_names", [])) or [""] * (
+        int(hand.max()) + 1 if len(hand) else 0
+    )
+    tip = {int(g) for g in hand if "fingertip" in names[int(g)]}
+    k_base = 8 * len(tables["geom_part"]) + 17 * len(tables["_pairs"])
+
+    def k_total(ns):
+        return k_base + 2 * int(ns.sum())
+
+    tiers = [
+        np.full(len(pairs), 15, np.int32),
+        np.array([15 if int(r) in finger else 8 for r, _ in pairs], np.int32),
+        np.array([15 if int(r) in tip else 8 for r, _ in pairs], np.int32),
+        np.full(len(pairs), 8, np.int32),
+    ]
+    ns_pair = tiers[-1]
+    for t in tiers:
+        if k_total(t) <= lane_budget:
+            ns_pair = t
+            break
+    s15 = np.asarray(_SAMPLE_SIGNS15, np.float32)
+    s8 = np.asarray(_CORNER_SIGNS, np.float32)
+
+    rl_pair, rl_rgeom, rl_pgeom, rl_sign = [], [], [], []
+    for i, (r, p) in enumerate(pairs):
+        s = s15 if ns_pair[i] == 15 else s8
+        rl_pair.append(np.full(len(s), i, np.int32))
+        rl_rgeom.append(np.full(len(s), r, np.int32))
+        rl_pgeom.append(np.full(len(s), p, np.int32))
+        rl_sign.append(s)
+    if pairs.size:
+        rl_pair = np.concatenate(rl_pair)
+        rl_rgeom = np.concatenate(rl_rgeom)
+        rl_pgeom = np.concatenate(rl_pgeom)
+        rl_sign = np.concatenate(rl_sign, axis=0)
+    else:
+        rl_pair = np.zeros(0, np.int32)
+        rl_rgeom = np.zeros(0, np.int32)
+        rl_pgeom = np.zeros(0, np.int32)
+        rl_sign = np.zeros((0, 3), np.float32)
+    return {
+        "_robot_pairs": pairs,
+        "_rl_pair": rl_pair,       # [L] pair index per side lane
+        "_rl_rgeom": rl_rgeom,     # [L] robot geom per side lane
+        "_rl_pgeom": rl_pgeom,     # [L] part geom per side lane
+        "_rl_sign": rl_sign,       # [L,3] sample sign vector
+        "_lane_rgeom": np.concatenate([rl_rgeom, rl_rgeom]),  # [2L]
+        "robot_np": {
+            "_box_sizes": np.asarray(robot.geom_size, dtype=np.float32),
+            "geom_friction": np.asarray(robot.geom_friction, dtype=np.float32),
+            "geom_solref": np.asarray(robot.geom_solref, dtype=np.float32),
+        },
+    }

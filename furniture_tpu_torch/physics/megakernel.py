@@ -69,6 +69,27 @@ def make_batched_substeps(tables, cfg_sim, device):
     return MegaPhysics(tables, cfg_sim, device)
 
 
+def lane_lists(part_a, part_b, Kf: int, P: int):
+    """The kernels' static per-part lane lists: ``lane_part`` [K,2], and for
+    each part its side-a lanes (floor lanes first) then its side-b lanes as
+    ``(lane << 1) | side`` in ``part_ent`` with offsets ``part_off`` and the
+    count of leading floor lanes ``part_nfloor``."""
+    lane_part = np.stack([part_a, part_b], 1).astype(np.int32)
+    ent, off, nfloor = [], [0], []
+    for p in range(P):
+        a = np.flatnonzero(part_a == p)
+        b = np.flatnonzero(part_b == p)
+        ent.extend((a << 1).tolist() + ((b << 1) | 1).tolist())
+        off.append(len(ent))
+        nfloor.append(int(np.sum(a < Kf)))
+    return (
+        lane_part,
+        np.asarray(ent, np.int32),
+        np.asarray(off, np.int32),
+        np.asarray(nfloor, np.int32),
+    )
+
+
 class MegaPhysics:
     """Constant tables and wrapper of the free-part kernel for one model."""
 
@@ -190,28 +211,17 @@ class MegaPhysics:
         lc[:, 20] = self.lane_fric
         lc[:, 21] = self.lane_beta
         self.lane_const = lc
-        self.lane_part = np.stack([self.part_a, self.part_b], 1).astype(np.int32)
-        # per part: its side-a lanes (floor lanes first), then its side-b lanes
-        ent, off, nfloor = [], [0], []
-        for p in range(P):
-            a = np.flatnonzero(self.part_a == p)
-            b = np.flatnonzero(self.part_b == p)
-            ent.extend((a << 1).tolist() + ((b << 1) | 1).tolist())
-            off.append(len(ent))
-            nfloor.append(int(np.sum(a < self.Kf)))
-        self.part_ent = np.asarray(ent, np.int32)
-        self.part_off = np.asarray(off, np.int32)
-        self.part_nfloor = np.asarray(nfloor, np.int32)
-
-        dev = self.device
+        self.lane_part, self.part_ent, self.part_off, self.part_nfloor = lane_lists(
+            self.part_a, self.part_b, self.Kf, P
+        )
         self._dev = {
-            name: torch.as_tensor(getattr(self, name), device=dev)
+            name: torch.as_tensor(getattr(self, name), device=self.device)
             for name in (
                 "part_const", "lane_const", "lane_part",
                 "part_off", "part_nfloor", "part_ent",
             )
         }
-        self._plain = make_substep(model_np, cfg_sim, dev)
+        self._plain = make_substep(model_np, cfg_sim, self.device)
 
     # -- the two versions ----------------------------------------------------
 

@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from furniture_tpu_torch.config import EnvConfig
+from furniture_tpu_torch.envs.arm import ArmEnv
 from furniture_tpu_torch.envs.cursor import CursorEnv
+from furniture_tpu_torch.physics.state import PartState
+from furniture_tpu_torch.robots import kinematics as K
 
 
 @pytest.mark.gpu
@@ -44,3 +47,51 @@ def test_free_part_kernel_matches_plain(name):
             err = (a - b).abs().max().item()
             assert err < 1e-4, (f, err)
     assert phys.launches == launches + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agent", ["Sawyer", "Baxter"])
+def test_arm_kernel_matches_plain(agent):
+    """The arm kernel against its plain version at B = 32 (TF32 off): from a
+    reset with part 0 on the first arm's left fingertip and the grippers
+    closing, one substep within 5e-4 with touch flags equal and set (longer
+    runs of that stiff contact are ill-conditioned in a few envs; the smoke
+    script holds them by their spread); and from the plain reset, without
+    contact, 5 substeps within 5e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    env = ArmEnv(EnvConfig(agent_type=agent, control_type="impedance"), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    B = 32
+    free = env.reset_batch(B, gen)
+    tip = K.geom_world(env.robot, K.fk(env.robot, free.qpos))[0][
+        :, int(env.robot.finger_geoms_l[env.arms[0]][-1])
+    ]
+    pos = free.parts.pos.clone()
+    # off the fingertip's center: a sample point exactly on a box center
+    # ties the least-penetrated axis
+    pos[:, 0] = tip + torch.tensor([0.004, 0.003, 0.002], device=dev)
+    touching = free._replace(parts=free.parts._replace(pos=pos))
+    act = torch.rand((B, env.dof), generator=gen, device=dev) * 2 - 1
+    act[:, -1 - env.n_arms : -1] = -1.0
+    ctrl = env._direct_ctrl(act[:, :-1])
+    ph = env.physics
+    launches = ph.launches
+    for state, n, want_touch in ((touching, 1, True), (free, 5, False)):
+        G1, G2 = K.joint_dyn_matrices(env.robot, state.qpos, env.config.sim.timestep)
+        args = (
+            PartState(*(t.contiguous() for t in state.parts)), state.group,
+            torch.ones((B, env._P), device=dev), state.qpos, state.qvel, ctrl,
+            torch.zeros((B, env.robot.nj), device=dev), G1.contiguous(), G2.contiguous(), n,
+        )
+        ref = ph.plain_control_step(*args)
+        out = ph.kernel_control_step(*args)
+        torch.cuda.synchronize()
+        for a, b in list(zip(ref[0], out[0])) + [(ref[1], out[1]), (ref[2], out[2])]:
+            assert (a - b).abs().max().item() < 5e-4
+        assert torch.equal(ref[3], out[3])
+        assert bool(out[3].any()) == want_touch
+    assert ph.launches == launches + 2

@@ -26,9 +26,9 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    """Importing the port, building a table_lack env and stepping it loads
-    neither jax nor the JAX package (fresh interpreter: this process has
-    imported jax already)."""
+    """Importing the port, building a table_lack cursor env and a Sawyer arm
+    env and stepping both loads neither jax nor the JAX package (fresh
+    interpreter: this process has imported jax already)."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -39,6 +39,12 @@ def test_port_imports_no_jax():
         "s = env.reset_batch(2, g)\n"
         "s, obs, rew, done, info = env.step_batch(s, torch.zeros(2, 15))\n"
         "assert torch.isfinite(s.parts.pos).all()\n"
+        "import furniture_tpu_torch.envs.arm\n"
+        "vec = ft.make_vec_env('IKEASawyer-v0', 2, device='cpu', control_type='impedance',\n"
+        "                      sim=SimConfig(control_freq=100))\n"
+        "vec.reset()\n"
+        "obs, rew, done, info = vec.step(torch.zeros(2, vec.env.dof))\n"
+        "assert torch.isfinite(vec.state.qpos).all() and vec.env.physics.K == 1260\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'furniture_tpu' or m.startswith('furniture_tpu.')]\n"
         "print('LOADED', bad)\n"
