@@ -8,8 +8,8 @@ package is imported) on the card:
 1. build: compiles every CUDA kernel of the port from the sources in the
    checkout (one ``nvcc`` per source, started together: the free-part
    kernel ``megakernel.cu`` and the arm kernel ``arm_megakernel.cu``, both
-   on the shared header ``physics_common.cuh``) and prints the
-   ``-Xptxas -v`` report;
+   on the shared header ``physics_common.cuh``, and the lane solver
+   ``lane_solver.cu``) and prints the ``-Xptxas -v`` report;
 2. kernel vs plain: each kernel against its plain PyTorch version on the
    card, TF32 off, at the shapes the main paths give it.
    Free-part kernel (table_lack, B=256, from a settled reset; n = 5 within
@@ -35,21 +35,44 @@ package is imported) on the card:
    held to the bound, at most a tenth of the envs may exceed it, and the
    maximum is held to 10x the plain version's own spread under position
    noise of 1e-7 and 1e-6, all printed. Touch flags must be equal, and set
-   where the part is gripped;
+   where the part is gripped.
+   Lane solver (B=256), on contacts taken from real states: table_lack
+   (K = 210) and chair_balser_0115 (K = 4153, P = 8) from a reset dropped
+   onto the floor, and table_lack with two recipe steps preassembled (welded
+   groups), each with part velocities of 0.1 m/s: ``solve_contacts_lane`` on
+   the card against ``plain_solve_contacts_lane`` on the card at 12 and 24
+   sweeps within 1e-4 on both velocities; two launches on one input must
+   agree bit for bit; the gap to ``engine._solve_contacts`` started cold
+   is printed and held to 2e-3 (linear) and 5e-3 (angular) with rtol 1e-3;
 3. main paths, each with the launch counts set to 0 before it and read
-   after it: ``make_vec_env("IKEACursor-v0", num_envs=4096)``, reset and 20
+   after it: ``make_vec_env("IKEACursor-v0", num_envs=4096)``, reset and 10
    steps of uniform random actions; ``make_vec_env("IKEASawyer-v0",
    num_envs=512, control_type="impedance")`` and the same id with
-   ``control_type="ik"`` at 256 envs, reset and 20 steps each. The counts
+   ``control_type="ik"`` at 256 envs, reset and 10 steps each. The counts
    must be what the code implies (the settle launches of the free-part
    kernel; one arm-kernel launch per impedance step, ``action_repeat`` = 3
    per ik step); the state must stay finite and in range, and a small batch
-   must agree with the port's CPU run (the plain versions);
+   must agree with the port's CPU run (the plain versions). Then the lane
+   path, ``make_vec_env("IKEACursor-v0", num_envs=4096,
+   sim=SimConfig(use_pallas="lane"))``: reset and 5 steps (100 lane-solver
+   launches per reset, 50 + 1 per step, none of the free-part kernel); the
+   planners on ``CursorEnv(SimConfig(timestep=0.02, solver_iters=8))``:
+   three receding-horizon MPPI plans of horizon 64 x 256 samples on the
+   default backend (128 free-part launches a plan), one on the lane backend
+   (384 lane-solver launches), one CEM iteration of horizon 16 x 256
+   samples, costs finite, means within [-1, 1], a plan repeated from the
+   same seed equal; and Sawyer at 512 envs under ``position_orientation``
+   and ``joint_impedance``, reset and 5 steps, one arm-kernel launch per
+   step, finite and not unstable;
 4. times with CUDA events after a warm-up: env steps/s of ``step_batch``
    for the cursor (B = 4096) and for Sawyer impedance (B = 512) and ik
    (B = 256), each kernel's ms per launch at n = 50, its plain version's
    ms, and the bound from its bytes and FP32 operations; for the Sawyer
-   step also ``joint_dyn_matrices`` and the IK solve.
+   step also ``joint_dyn_matrices`` and the IK solve; the lane solver's ms
+   per launch at B = 4096, K = 210, 12 sweeps, beside its wrapper (with the
+   preparation in PyTorch), its plain version and ``engine._solve_contacts``
+   at the same shape; the lane path's step, MPPI plans/s on each backend and
+   the ``position_orientation`` step with the controller's share.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -75,7 +98,9 @@ FULL_POWER_W = 700.0
 
 MAIN_B = 4096
 CHECK_B = 256
-STEPS = 20
+STEPS = 10
+LANE_STEPS = 5
+CTRL_STEPS = 5
 ARM_RUNS = (("impedance", 512), ("ik", 256))   # bench.py's Sawyer sizes
 
 
@@ -129,7 +154,8 @@ def main() -> None:
     from furniture_tpu_torch.config import SimConfig
     from furniture_tpu_torch.envs.arm import ArmEnv
     from furniture_tpu_torch.envs.cursor import CursorEnv
-    from furniture_tpu_torch.physics import arm_megakernel, megakernel
+    from furniture_tpu_torch.physics import arm_megakernel, engine, lane_solver, megakernel
+    from furniture_tpu_torch.planning import CEMConfig, MPPIConfig, make_cem, make_mppi
     from furniture_tpu_torch.robots import kinematics as K
     from furniture_tpu_torch.physics.state import PartState
 
@@ -142,7 +168,7 @@ def main() -> None:
 
     # -- 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    sources = [megakernel.SOURCE, arm_megakernel.SOURCE]
+    sources = [megakernel.SOURCE, arm_megakernel.SOURCE, lane_solver.SOURCE]
     procs = [_cuda.start_build(s) for s in sources]
     for p in procs:
         _cuda.finish_build(p)
@@ -153,6 +179,7 @@ def main() -> None:
                 print("   ", line.strip())
     megakernel.library()
     arm_megakernel.library()
+    lane_solver.library()
 
     # -- 2. kernel vs plain -------------------------------------------------------
     worst = 0.0   # over the checks held at their stated bounds
@@ -394,6 +421,77 @@ def main() -> None:
     hold_arm(env, st, ctrl, "Baxter part in fingertip", ((1, 5e-4),), False, True)
     hold_arm(env, st, ctrl, "Baxter part in fingertip", ((5, 5e-4),), True, True)
 
+    # -- 2c. lane solver vs plain ---------------------------------------------------
+    lane_worst = 0.0
+    lane_cold_gap = [0.0, 0.0]
+
+    def lane_args(name, stack, **cfg):
+        """Solver arguments from a real state: a reset of the lane-backend
+        env dropped onto the floor by 50 substeps under gravity, then part
+        velocities of 0.1 m/s."""
+        env = CursorEnv(EnvConfig(furniture_name=name, sim=SimConfig(use_pallas="lane"), **cfg),
+                        device=dev)
+        gen.manual_seed(0)
+        st = env.reset_batch(CHECK_B, gen)
+        ones = torch.ones((CHECK_B, env._P), device=dev)
+        parts = st.parts
+        if stack:
+            # leg 0 laid on the table top, so that pair lanes carry contact
+            pos = parts.pos.clone()
+            pos[:, 0] = pos[:, 4] + torch.tensor([0.05, 0.0, 0.02 + 0.015 - 0.002], device=dev)
+            parts = parts._replace(pos=pos)
+        parts = env.physics.substeps(parts, st.group, ones, 50)
+        # 0.1 m/s along the floor and into it, 0.1 rad/s about every axis
+        push = torch.tensor([0.1, 0.1, -0.1], device=dev)
+        parts = parts._replace(lin_vel=parts.lin_vel + push, ang_vel=parts.ang_vel + 0.1)
+        return env, st.group, env.physics.solver_args(parts, st.group, ones)
+
+    for tag, name, stack, cfg in (
+        ("table_lack_0825 leg on table top", "table_lack_0825", True, {}),
+        ("chair_balser_0115", "chair_balser_0115", False, {}),
+        ("table_lack_0825 welded-by-connect", "table_lack_0825", False, {"preassembled": (0, 1)}),
+    ):
+        env, group, args = lane_args(name, stack, **cfg)
+        c = args[0]
+        n_lanes = c.depth.shape[1]
+        live = c.mask & (c.depth > -args[10])
+        active = int(live.sum())
+        active_b = int((live & (c.part_b >= 0)).sum())
+        smem, in_smem = lane_solver.work_buffer(env._P, n_lanes)
+        print(f"[check] lane {tag}: P={env._P} K={n_lanes}, {active} active lanes in {CHECK_B} envs ({active_b} between parts), "
+              f"groups {group[0].tolist()}, work buffer in "
+              f"{'shared memory' if in_smem else 'global scratch'} ({smem} B shared/block)")
+        if active == 0 or (stack and active_b == 0):
+            fail(f"lane {tag}: no active contact lane")
+        for iters in (12, 24):
+            a = args[:8] + (iters,) + args[9:]
+            lv, av = lane_solver.solve_contacts_lane(*a)
+            lv2, av2 = lane_solver.solve_contacts_lane(*a)
+            rl, ra = lane_solver.plain_solve_contacts_lane(*a)
+            wl, wa, _, _ = engine._solve_contacts(*a, torch.zeros((CHECK_B, n_lanes, 3), device=dev))
+            torch.cuda.synchronize()
+            if not (torch.isfinite(lv).all() and torch.isfinite(av).all()):
+                fail(f"lane {tag} iters={iters}: kernel output not finite")
+            if not (torch.equal(lv, lv2) and torch.equal(av, av2)):
+                fail(f"lane {tag} iters={iters}: two launches on one input differ")
+            e_l, e_a = (lv - rl).abs().max().item(), (av - ra).abs().max().item()
+            g_l, g_a = (lv - wl).abs().max().item(), (av - wa).abs().max().item()
+            moved = (lv - a[5]).abs().max().item()
+            print(f"[check] lane {tag} iters={iters}: max|kernel-plain| lin {e_l:.3g} ang {e_a:.3g} "
+                  f"(bound 1e-4), repeat bit-identical, vs engine._solve_contacts cold lin {g_l:.3g} "
+                  f"ang {g_a:.3g} (bounds 2e-3, 5e-3 + 1e-3 relative), solve moved lin_vel by {moved:.3g}",
+                  flush=True)
+            if not max(e_l, e_a) <= 1e-4:
+                fail(f"lane {tag} iters={iters}: kernel disagrees with its plain version")
+            if not moved > 1e-3:
+                fail(f"lane {tag} iters={iters}: the solve changed nothing")
+            if not ((lv - wl).abs() <= 2e-3 + 1e-3 * wl.abs()).all() or not (
+                (av - wa).abs() <= 5e-3 + 1e-3 * wa.abs()
+            ).all():
+                fail(f"lane {tag} iters={iters}: kernel and cold engine._solve_contacts disagree")
+            lane_worst = max(lane_worst, e_l, e_a)
+            lane_cold_gap = [max(lane_cold_gap[0], g_l), max(lane_cold_gap[1], g_a)]
+
     # -- 3. main path -----------------------------------------------------------
     vec = ft.make_vec_env("IKEACursor-v0", num_envs=MAIN_B, seed=0)
     phys = vec.env.physics
@@ -418,44 +516,54 @@ def main() -> None:
         fail(f"launch count {launches} != {expect}")
     s = vec.state
     env = vec.env
-    for t in s.parts:
-        if not torch.isfinite(t).all():
-            fail("main path state not finite")
-    P, W = env._P, env._W
-    checks = {
-        "group": ((s.group >= 0) & (s.group < P)).all(),
-        "selected": ((s.selected >= -1) & (s.selected < P)).all(),
-        "num_connected": ((s.num_connected >= 0) & (s.num_connected <= W)).all(),
-        "connect_step": ((s.connect_step >= 0) & (s.connect_step <= env.config.num_connect_steps)).all(),
-        "subtask": ((s.subtask >= -1) & (s.subtask < P)).all(),
-        "t": ((s.t >= 0) & (s.t <= STEPS)).all(),
-        "cursor": (s.cursor_pos.abs() <= env.config.cursor_boundary).all(),
-        "quat_norm": ((s.parts.quat.norm(dim=-1) - 1).abs() < 1e-3).all(),
-    }
-    bad = [k for k, v in checks.items() if not bool(v)]
-    if bad:
-        fail(f"main path state out of range: {bad}")
+    def cursor_in_range(s, env, max_t, tag):
+        for t in s.parts:
+            if not torch.isfinite(t).all():
+                fail(f"{tag}: state not finite")
+        P, W = env._P, env._W
+        checks = {
+            "group": ((s.group >= 0) & (s.group < P)).all(),
+            "selected": ((s.selected >= -1) & (s.selected < P)).all(),
+            "num_connected": ((s.num_connected >= 0) & (s.num_connected <= W)).all(),
+            "connect_step": ((s.connect_step >= 0) & (s.connect_step <= env.config.num_connect_steps)).all(),
+            "subtask": ((s.subtask >= -1) & (s.subtask < P)).all(),
+            "t": ((s.t >= 0) & (s.t <= max_t)).all(),
+            "cursor": (s.cursor_pos.abs() <= env.config.cursor_boundary).all(),
+            "quat_norm": ((s.parts.quat.norm(dim=-1) - 1).abs() < 1e-3).all(),
+        }
+        bad = [k for k, v in checks.items() if not bool(v)]
+        if bad:
+            fail(f"{tag}: state out of range: {bad}")
+
+    cursor_in_range(s, env, STEPS, "main path")
+    P = env._P
     print(f"[main] state finite and in range; mean reward of last step {rew.mean().item():.4f}")
 
     # a small batch through the card and through the CPU (plain version)
     from furniture_tpu_torch.convert import cursor_state_from_numpy, cursor_state_to_numpy
 
-    cpu_env = CursorEnv(EnvConfig(), device="cpu")
-    gen.manual_seed(2)
-    st_gpu = env.reset_batch(8, gen)
-    st_cpu = cursor_state_from_numpy(cursor_state_to_numpy(st_gpu), "cpu")
-    for i in range(3):
-        a = actions[i][:8]
-        st_gpu, _, r_gpu, d_gpu, _ = env.step_batch(st_gpu, a)
-        st_cpu, _, r_cpu, d_cpu, _ = cpu_env.step_batch(st_cpu, a.cpu())
-    g, c = cursor_state_to_numpy(st_gpu), cursor_state_to_numpy(st_cpu)
-    for k in ("group", "selected", "num_connected", "connect_step", "t"):
-        if not np.array_equal(g[k], c[k]):
-            fail(f"small batch: {k} differs between card and CPU")
-    err_small = max(float(np.abs(g[k] - c[k]).max()) for k in ("pos", "quat", "lin_vel", "ang_vel"))
-    print(f"[main] B=8, 3 steps: card vs CPU plain version max|diff| {err_small:.3g} (bound 1e-3)")
-    if not err_small <= 1e-3:
-        fail(f"small batch: card and CPU differ by {err_small}")
+    def cursor_small_batch(env, cpu_env, n_steps, tag):
+        """8 envs through the card and through the CPU (plain versions):
+        discrete state exact, part floats within 1e-3."""
+        gen.manual_seed(2)
+        st_gpu = env.reset_batch(8, gen)
+        st_cpu = cursor_state_from_numpy(cursor_state_to_numpy(st_gpu), "cpu")
+        for i in range(n_steps):
+            a = actions[i][:8]
+            st_gpu = env.step_batch(st_gpu, a)[0]
+            st_cpu = cpu_env.step_batch(st_cpu, a.cpu())[0]
+        g, c = cursor_state_to_numpy(st_gpu), cursor_state_to_numpy(st_cpu)
+        for k in ("group", "selected", "num_connected", "connect_step", "t"):
+            if not np.array_equal(g[k], c[k]):
+                fail(f"{tag} small batch: {k} differs between card and CPU")
+        err = max(float(np.abs(g[k] - c[k]).max()) for k in ("pos", "quat", "lin_vel", "ang_vel"))
+        print(f"[main] {tag} B=8, {n_steps} steps: card vs CPU plain version max|diff| {err:.3g} "
+              f"(bound 1e-3)")
+        if not err <= 1e-3:
+            fail(f"{tag} small batch: card and CPU differ by {err}")
+        return err
+
+    err_small = cursor_small_batch(env, CursorEnv(EnvConfig(), device="cpu"), 3, "cursor")
 
     # -- 3b. arm main paths ---------------------------------------------------
     from furniture_tpu_torch.convert import arm_state_from_numpy, arm_state_to_numpy
@@ -539,6 +647,147 @@ def main() -> None:
         bad = [k for k in bounds if not per[k] <= bounds[k]]
         if bad:
             fail(f"{control_type} small batch: card and CPU differ in {bad}")
+
+    # -- 3c. the lane path ----------------------------------------------------------
+    lane_sim = SimConfig(use_pallas="lane")
+    lvec = ft.make_vec_env("IKEACursor-v0", num_envs=MAIN_B, seed=0, sim=lane_sim)
+    lenv = lvec.env
+    if not isinstance(lenv.physics, megakernel.LanePhysics):
+        fail("use_pallas='lane' did not select the lane backend")
+    lane_solver.launches = 0
+    vec.env.physics.launches = 0
+    lvec.reset()
+    dones = []
+    for a in actions[:LANE_STEPS]:
+        _, rew, done, _ = lvec.step(a)
+        dones.append(bool(done.any()))
+    torch.cuda.synchronize()
+    lane_launches = lane_solver.launches
+    # 10 settle rounds of 10 substeps, one launch per substep; per step the
+    # n substeps and the unconditional 1-substep snap launch; a reset more
+    # on steps where some lane finished
+    n_sub = lenv.config.n_substeps
+    want_lane = 100 + (n_sub + 1) * LANE_STEPS + 100 * sum(dones)
+    print(f"[main] make_vec_env IKEACursor-v0 use_pallas=lane B={MAIN_B}: reset + {LANE_STEPS} steps, "
+          f"lane-solver launches {lane_launches} (expected {want_lane}), free-part kernel launches "
+          f"{vec.env.physics.launches} (expected 0), steps with a done {sum(dones)}")
+    if lane_launches != want_lane or vec.env.physics.launches != 0:
+        fail(f"lane path launch counts {lane_launches}, {vec.env.physics.launches} != {want_lane}, 0")
+    cursor_in_range(lvec.state, lenv, LANE_STEPS, "lane path")
+    print(f"[main] lane path: state finite and in range; mean reward of last step {rew.mean().item():.4f}")
+    cursor_small_batch(lenv, CursorEnv(EnvConfig(sim=lane_sim), device="cpu"), 2, "lane path")
+
+    # -- 3d. the planners -----------------------------------------------------------
+    plan_sim = {"timestep": 0.02, "solver_iters": 8}     # bench.py's MPPI configuration
+    mcfg = MPPIConfig(horizon=64, n_samples=256, sigma=0.3)
+    penv = CursorEnv(EnvConfig(sim=SimConfig(**plan_sim)), device=dev)
+    gen.manual_seed(0)
+    pstate = penv.reset_batch(1, gen)
+    plan = make_mppi(penv, mcfg)
+    pgen = torch.Generator(device=dev)
+
+    def check_plan(mean, info, tag):
+        if not (torch.isfinite(info["costs"]).all() and torch.isfinite(mean).all()):
+            fail(f"{tag}: costs or mean not finite")
+        if mean.abs().max().item() > 1.0 + 1e-6:
+            fail(f"{tag}: mean outside [-1, 1]")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    penv.physics.launches = 0
+    mean = torch.zeros((mcfg.horizon, penv.dof), device=dev)
+    mppi_s = []
+    for i in range(3):                      # receding horizon: warm-started mean
+        pgen.manual_seed(10 + i)
+        (mean, pinfo), sec = timed(lambda: plan(pstate, mean, pgen))
+        check_plan(mean, pinfo, f"MPPI plan {i}")
+        mppi_s.append(sec)
+    mppi_launches = penv.physics.launches
+    want = 3 * 2 * mcfg.horizon             # per control step: n substeps + the snap launch
+    pgen.manual_seed(10)
+    m0, _ = plan(pstate, torch.zeros_like(mean), pgen)
+    pgen.manual_seed(10)
+    m1, _ = plan(pstate, torch.zeros_like(mean), pgen)
+    repeat_diff = (m0 - m1).abs().max().item()
+    print(f"[main] MPPI horizon {mcfg.horizon} x {mcfg.n_samples} samples, default backend: 3 plans, "
+          f"free-part kernel launches {mppi_launches} (expected {want}), best cost "
+          f"{pinfo['best_cost'].item():.4f}, mean cost {pinfo['mean_cost'].item():.4f}, "
+          f"same seed twice max|diff| {repeat_diff:.3g}; s per plan {[round(x, 3) for x in mppi_s]}")
+    if mppi_launches != want:
+        fail(f"MPPI launch count {mppi_launches} != {want}")
+    if repeat_diff != 0.0:
+        fail(f"MPPI: the same seed gave another mean ({repeat_diff})")
+
+    lpenv = CursorEnv(EnvConfig(sim=SimConfig(use_pallas="lane", **plan_sim)), device=dev)
+    lplan = make_mppi(lpenv, mcfg)
+    lane_solver.launches = 0
+    penv.physics.launches = 0
+    pgen.manual_seed(10)
+    (lmean, linfo), lane_plan_s = timed(lambda: lplan(pstate, torch.zeros_like(mean), pgen))
+    check_plan(lmean, linfo, "MPPI lane plan")
+    mppi_lane_launches = lane_solver.launches
+    want = mcfg.horizon * (lpenv.config.n_substeps + 1)
+    print(f"[main] MPPI lane backend: 1 plan, lane-solver launches {mppi_lane_launches} (expected "
+          f"{want}), free-part kernel launches {penv.physics.launches} (expected 0), best cost "
+          f"{linfo['best_cost'].item():.4f}; {lane_plan_s:.3f} s")
+    if mppi_lane_launches != want or penv.physics.launches != 0:
+        fail(f"MPPI lane launch counts {mppi_lane_launches}, {penv.physics.launches} != {want}, 0")
+
+    ccfg = CEMConfig(horizon=16, n_samples=256, n_elite=32)
+    cem = make_cem(penv, ccfg)
+    pgen.manual_seed(20)
+    (cmean, csigma, cinfo), cem_s = timed(lambda: cem(
+        pstate, torch.zeros((ccfg.horizon, penv.dof), device=dev),
+        torch.full((ccfg.horizon, penv.dof), ccfg.sigma_init, device=dev), pgen))
+    cem_launches = penv.physics.launches
+    check_plan(cmean, cinfo, "CEM")
+    if not (torch.isfinite(csigma).all() and (csigma >= ccfg.sigma_min).all()):
+        fail("CEM: sigma not finite or below sigma_min")
+    print(f"[main] CEM horizon {ccfg.horizon} x {ccfg.n_samples} samples, {ccfg.n_elite} elites: 1 "
+          f"iteration, free-part kernel launches {cem_launches} (expected {2 * ccfg.horizon}), best cost "
+          f"{cinfo['best_cost'].item():.4f}; {cem_s:.3f} s")
+    if cem_launches != 2 * ccfg.horizon:
+        fail(f"CEM launch count {cem_launches} != {2 * ccfg.horizon}")
+
+    # -- 3e. the torque-space controllers -------------------------------------------
+    ctrl_vecs, ctrl_launches = {}, {}
+    for control_type in ("position_orientation", "joint_impedance"):
+        cvec = ft.make_vec_env("IKEASawyer-v0", num_envs=512, seed=0, control_type=control_type)
+        cenv = cvec.env
+        agen = torch.Generator(device=dev)
+        agen.manual_seed(1)
+        cacts = [torch.rand((512, cenv.dof), generator=agen, device=dev) * 2 - 1
+                 for _ in range(CTRL_STEPS)]
+        cenv.physics.launches = 0
+        cenv.physics.free.launches = 0
+        cvec.reset()
+        dones, unstable = [], False
+        for a in cacts:
+            _, rew, done, info = cvec.step(a)
+            dones.append(bool(done.any()))
+            unstable = unstable or bool(info["unstable"].any())
+        torch.cuda.synchronize()
+        got_arm, got_free = cenv.physics.launches, cenv.physics.free.launches
+        want_free = 10 + 10 * sum(dones)
+        print(f"[main] make_vec_env IKEASawyer-v0 {control_type} B=512: reset + {CTRL_STEPS} steps, "
+              f"arm kernel launches {got_arm} (expected {CTRL_STEPS}), free-part kernel launches "
+              f"{got_free} (expected {want_free}), unstable {unstable}, max |qvel| "
+              f"{cvec.state.qvel.abs().max().item():.3f}")
+        if got_arm != CTRL_STEPS or got_free != want_free:
+            fail(f"{control_type}: launch counts {got_arm}, {got_free} != {CTRL_STEPS}, {want_free}")
+        cs = cvec.state
+        for t in list(cs.parts) + [cs.qpos, cs.qvel, rew]:
+            if not torch.isfinite(t).all():
+                fail(f"{control_type}: state not finite")
+        if unstable:
+            fail(f"{control_type}: an env went unstable")
+        ctrl_vecs[control_type] = (cvec, cacts)
+        ctrl_launches[control_type] = got_arm
 
     # -- 4. times ---------------------------------------------------------------
     env = vec.env
@@ -637,6 +886,90 @@ def main() -> None:
           f"{PEAK_HBM_BYTES / 1e12:g} TB/s; kernel at {arm_bound_ms / arm_kernel_ms:.4f} of its bound")
     print("[time] arm library_ms: null (no single PyTorch call computes this function)")
 
+    # -- 4c. lane solver, lane path, planner and controller times ------------------
+    gen.manual_seed(3)
+    lstate = lenv.reset_batch(MAIN_B, gen)
+    lstate = lenv.step_batch(lstate, actions[0])[0]  # warm-up
+    lholder = [lstate]
+
+    def lane_step_once(it=iter(range(10**9))):
+        lholder[0] = lenv.step_batch(lholder[0], actions[next(it) % STEPS])[0]
+
+    lane_step_ms = cuda_ms(lane_step_once, 3)
+    lane_steps_per_s = MAIN_B / (lane_step_ms / 1e3)
+    # the solver's inputs inside a substep of that path: parts resting on
+    # the floor, gravity applied
+    lparts = PartState(*(t.contiguous() for t in lholder[0].parts))
+    lgroup = lholder[0].group.contiguous()
+    largs = lenv.physics.solver_args(lparts, lgroup, torch.ones((MAIN_B, lenv._P), device=dev))
+    lc = largs[0]
+    LK, LP, liters = lc.depth.shape[1], lenv._P, largs[8]
+    packed = lane_solver.kernel_inputs(*largs[:5], largs[7], largs[9], largs[10])
+    tail = (lgroup, largs[3], largs[4], largs[5], largs[6], liters)
+    lane_solver.launch_packed(*packed, *tail)  # warm-up
+    lane_kernel_ms = cuda_ms(lambda: lane_solver.launch_packed(*packed, *tail), 20)
+    lane_wrapper_ms = cuda_ms(lambda: lane_solver.solve_contacts_lane(*largs), 10)
+    lane_plain_ms = cuda_ms(lambda: lane_solver.plain_solve_contacts_lane(*largs), 3)
+    zeros_lam = torch.zeros((MAIN_B, LK, 3), device=dev)
+    warm_solver_ms = cuda_ms(lambda: engine._solve_contacts(*largs, zeros_lam), 3)
+    K_b = int((lc.part_b >= 0).sum())
+    # (lane side, member part) pairs phase B adds up, from this run's groups
+    gsize = (lgroup[:, :, None] == lgroup[:, None, :]).sum(-1).to(torch.float32)   # [B,P]
+    pb_safe = lc.part_b.clamp(min=0)
+    entries = (gsize[:, lc.part_a].sum(-1)
+               + (gsize[:, pb_safe] * (lc.part_b >= 0)).sum(-1)).mean().item()
+    l_ops = lane_solver.fp32_ops_per_env(LK, K_b, LP, liters, entries) * MAIN_B
+    l_bytes = lane_solver.bytes_per_env(LK, LP) * MAIN_B + 2 * 4 * LK
+    l_t_ops = l_ops / PEAK_FP32_FLOPS * 1e3
+    l_t_bytes = l_bytes / PEAK_HBM_BYTES * 1e3
+    lane_bound_ms = max(l_t_ops, l_t_bytes)
+    lane_bound_by = "operations" if l_t_ops >= l_t_bytes else "bytes"
+    n_active = int((lc.mask & (lc.depth > -largs[10])).sum())
+    print(f"[time] lane path step_batch B={MAIN_B}: {lane_step_ms:.3f} ms/step, "
+          f"{lane_steps_per_s:.1f} env steps/s ({lenv.config.n_substeps + 1} lane-solver launches a step)")
+    print(f"[time] lane solver B={MAIN_B} K={LK} P={LP} sweeps={liters} ({n_active} active lanes): kernel "
+          f"{lane_kernel_ms:.4f} ms/launch; wrapper with the PyTorch preparation {lane_wrapper_ms:.3f} ms; "
+          f"plain version {lane_plain_ms:.3f} ms; engine._solve_contacts (the solve the lane path "
+          f"replaces) {warm_solver_ms:.3f} ms")
+    print(f"[time] lane bound: {l_ops:.4g} FP32 ops -> {l_t_ops:.4f} ms at {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s; "
+          f"{l_bytes} B -> {l_t_bytes:.4f} ms at {PEAK_HBM_BYTES / 1e12:g} TB/s; bound by {lane_bound_by} "
+          f"({lane_bound_ms / scale:.4f} ms scaled to {watts:g} W); kernel at "
+          f"{lane_bound_ms / lane_kernel_ms:.4f} of its bound")
+    print("[time] lane library_ms: null (no single PyTorch call computes the sweeps)")
+    print(f"[time] MPPI horizon {mcfg.horizon} x {mcfg.n_samples}: default backend "
+          f"{1.0 / min(mppi_s[1:]):.3f} plans/s (best of plans 2 and 3; first {mppi_s[0]:.3f} s), "
+          f"lane backend {1.0 / lane_plan_s:.3f} plans/s (one plan); CEM iteration {cem_s:.3f} s")
+    cvec, cacts = ctrl_vecs["position_orientation"]
+    cenv = cvec.env
+    cholder = [cvec.state]
+
+    def ctrl_step_once(it=iter(range(10**9))):
+        cholder[0] = cenv.step_batch(cholder[0], cacts[next(it) % CTRL_STEPS])[0]
+
+    ctrl_step_once()  # warm-up
+    osc_step_ms = cuda_ms(ctrl_step_once, 5)
+    osc_prepare_ms = cuda_ms(lambda: cenv._controller_prepare(cholder[0], cacts[0][:, :-1]), 5)
+    # does the batched SVD wait for the card? Enqueue a long kernel, then
+    # see when the SVD call returns on the host
+    from furniture_tpu_torch.controllers.osc import _svd_clamped_inv
+
+    mats = torch.rand((512, 3, 3), device=dev)
+    mats = mats @ mats.transpose(1, 2)
+    _svd_clamped_inv(mats)  # warm-up
+    torch.cuda.synchronize()
+    phys.kernel_substeps(parts, group, gscale, n)
+    t_host = time.perf_counter()
+    _svd_clamped_inv(mats)
+    svd_host_ms = (time.perf_counter() - t_host) * 1e3
+    torch.cuda.synchronize()
+    svd_waits = svd_host_ms > 0.5 * kernel_ms
+    print(f"[time] torch.linalg.svd on [512,3,3] called right after a {kernel_ms:.1f} ms kernel was "
+          f"enqueued returned after {svd_host_ms:.3f} ms on the host: it "
+          f"{'waits for the card (a host synchronisation)' if svd_waits else 'does not wait for the card'}")
+    print(f"[time] Sawyer position_orientation step_batch B=512: {osc_step_ms:.3f} ms/step, "
+          f"{512 / (osc_step_ms / 1e3):.1f} env steps/s; _controller_prepare (FK, mass matrix, three "
+          f"SVD-clamped inverses) {osc_prepare_ms:.3f} ms of it")
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "free_part_megakernel",
@@ -657,6 +990,7 @@ def main() -> None:
         "step_ms": step_ms,
         "env_steps_per_s": steps_per_s,
         "launches_on_arm_paths": free_launches_arm,
+        "launches_on_planner_paths": {"mppi": mppi_launches, "cem": cem_launches},
     }, {
         "name": "arm_megakernel",
         "route": "cuda",
@@ -680,6 +1014,30 @@ def main() -> None:
         "env_steps_per_s": {k: v[1] for k, v in arm_step.items()},
         "joint_dyn_matrices_ms": dyn_ms,
         "ik_prepare_ms": ik_ms,
+        "launches_on_controller_paths": ctrl_launches,
+        "position_orientation_step_ms": osc_step_ms,
+        "controller_prepare_ms": osc_prepare_ms,
+        "svd_synchronises_host": svd_waits,
+    }, {
+        "name": "lane_solver",
+        "route": "cuda",
+        "source": "furniture_tpu_torch/physics/csrc/lane_solver.cu",
+        "replaces": "furniture_tpu/physics/pallas_solver.py:51",
+        "launches": lane_launches + mppi_lane_launches,
+        "max_abs_err": lane_worst,
+        "ms": lane_kernel_ms,
+        "plain_ms": lane_plain_ms,
+        "bound_ms": lane_bound_ms,
+        "bound_by": lane_bound_by,
+        "library_ms": None,
+        "bound_ms_at_power_limit": lane_bound_ms / scale,
+        "launches_by_path": {"lane_cursor": lane_launches, "mppi_lane": mppi_lane_launches},
+        "wrapper_ms": lane_wrapper_ms,
+        "engine_solve_contacts_ms": warm_solver_ms,
+        "gap_to_cold_engine_solve": {"lin": lane_cold_gap[0], "ang": lane_cold_gap[1]},
+        "step_ms": lane_step_ms,
+        "env_steps_per_s": lane_steps_per_s,
+        "mppi_plans_per_s": {"default": 1.0 / min(mppi_s[1:]), "lane": 1.0 / lane_plan_s},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -11,8 +11,13 @@ and ``step_batch``, ``make_vec_env("IKEACursor-v0", ...)``) with the
 free-part physics kernel written in CUDA (``physics/csrc/megakernel.cu``),
 and the batched arm control step for Sawyer, Panda, Jaco, Fetch and Baxter
 (``ArmEnv.reset_batch`` and ``step_batch``, ``make_vec_env("IKEASawyer-v0",
-...)``; ik, ik_quaternion, impedance and torque control) with the arm
-physics kernel written in CUDA (``physics/csrc/arm_megakernel.cu``).
+...)``; all nine control types, the five torque-space controllers through
+``controllers/osc.py``) with the arm physics kernel written in CUDA
+(``physics/csrc/arm_megakernel.cu``); the lane-solver backend
+(``SimConfig(use_pallas="lane")``, ``physics/lane_solver.py``) with its
+kernel in CUDA (``physics/csrc/lane_solver.cu``); the sampling planners
+MPPI and CEM over ``step_batch`` (``planning``); and the initial-state pool
+(``utils.init_pool``, ``set_init_state_pool``).
 """
 
 from .api import make_vec_env  # noqa: F401

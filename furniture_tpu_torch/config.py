@@ -2,11 +2,25 @@
 
 The port's own copy of ``furniture_tpu.config``: the same frozen
 dataclasses with the same fields and defaults, so a configuration means the
-same thing in both packages. The port ignores ``SimConfig.use_pallas``,
-``mega_block`` and ``arm_mega_block``, which stay for parity of the
-dataclass: its batched physics always runs the CUDA kernels
-(``physics/megakernel.py``, ``physics/arm_megakernel.py``) on CUDA tensors
-and their plain PyTorch versions on CPU tensors. The arm fields
+same thing in both packages. ``SimConfig.use_pallas`` selects the backend
+of the batched free-part substeps (``CursorEnv.step_batch`` and
+``reset_batch``, ``ArmEnv``'s reset settle):
+
+* ``"auto"``, ``"on"``, ``"off"``: the free-part kernel
+  (``physics/megakernel.py``, ``csrc/megakernel.cu``) on CUDA tensors and
+  its plain PyTorch version on CPU tensors. The three mean the same here:
+  the port has no interpret mode, and which version runs follows from where
+  the tensors lie, not from the field;
+* ``"lane"``: the plain narrow phase and integration in PyTorch with every
+  substep's contacts solved cold, without a warm start carried across
+  substeps, by the lane solver (``physics/lane_solver.py``: its kernel
+  ``csrc/lane_solver.cu`` on CUDA tensors, its plain version on CPU
+  tensors). As in the JAX package, the arm control step is not affected: it
+  needs the robot lanes' warm cap and impulses, which the lane solver does
+  not have, and runs the arm kernel (``physics/arm_megakernel.py``).
+
+``mega_block`` and ``arm_mega_block`` are the TPU kernels' block sizes and
+are ignored; they stay for parity of the dataclass. The arm fields
 (``arm_lane_budget``, ``robot_coupling``, ``robot_coupling_clamp``,
 ``gripper_squeeze``, ``grip_press_vel``, ``held_vel_clamp``,
 ``held_angvel_clamp``; ``EnvConfig.agent_type``, ``control_type``,

@@ -14,8 +14,10 @@ envs at once (every state field leads with the env dimension B). Semantics:
   - ``torque``: direct motor torques on the torque variant of the robot;
   - the five torque-space controllers (``position_orientation``,
     ``position``, ``joint_impedance``, ``joint_velocity``,
-    ``joint_torque``) are not ported yet: the env raises
-    ``NotImplementedError`` for them, as for the initial-state pool;
+    ``joint_torque``): torques from ``controllers/osc.py`` on the torque
+    variant of the robot, computed once per control step and held for its
+    substeps as the arm kernel's ``tau_extra``, with the arm actuators at
+    zero and the gripper scalar on the regular actuator path;
 * the robot is gravity/bias-compensated every control step, so arm dynamics
   reduce to M(q)q̈ = τ_act − D q̇ (integrated implicitly);
 * two-finger grasping is real contact physics: gripper geoms are kinematic
@@ -31,9 +33,12 @@ envs at once (every state field leads with the env dimension B). Semantics:
 
 Every control step is one launch of the arm kernel through
 ``ArmMegaPhysics.control_step`` (``action_repeat`` launches for ik); the
-reset's ten settle rounds go through the free-part kernel. Where the JAX
+reset's ten settle rounds go through the free-part kernel or, with
+``SimConfig(use_pallas="lane")``, through the lane-solver backend. Where the JAX
 package branches per env with ``lax.cond``, this module computes both sides
-and selects on the batch; the step path has no host synchronisation.
+and selects on the batch; the step path has no host synchronisation,
+except under ``position_orientation`` and ``position``, whose batched
+``torch.linalg.svd`` waits for the card.
 
 Entry points run on CUDA by default (``device=None``); only an explicit
 ``device="cpu"`` runs on the CPU, where the physics is the kernels' plain
@@ -51,17 +56,26 @@ import torch
 from .. import transforms as T
 from ..config import EnvConfig
 from ..controllers import dls_ik, ik_velocities
+from ..controllers.osc import (
+    joint_impedance_torques,
+    joint_velocity_torques,
+    load_controller_config,
+    osc_torques,
+)
 from ..models import CompiledModel, compile_from_config
 from ..physics.arm_megakernel import ArmMegaPhysics
 from ..physics.collide import floor_contacts
 from ..physics.engine import physics_tables, robot_contact_tables
+from ..physics.megakernel import make_batched_substeps
 from ..physics.state import PartState, init_state, zero_vel
 from ..robots import AGENT_SPECS, compile_robot
 from ..robots import kinematics as K
+from ..utils.init_pool import load_pool
 from .assembly import (
     AssemblyOps,
     apply_reset_variants,
     instability_guard,
+    pool_to_device,
     rows,
     sample_placement,
     settle_parts,
@@ -136,16 +150,11 @@ class ArmEnv:
         if cfg.agent_type not in AGENT_SPECS:
             raise ValueError(f"unknown arm agent {cfg.agent_type!r}")
         self.control_type = cfg.control_type
-        if self.control_type in NEW_CONTROLLERS:
-            raise NotImplementedError(
-                f"control_type {self.control_type!r}: the torque-space controllers "
-                "(controllers/osc.py, ArmEnv._controller_prepare) are not ported yet"
-            )
-        if self.control_type not in ("ik", "ik_quaternion", "impedance", "torque"):
+        known = ("ik", "ik_quaternion", "impedance", "torque") + NEW_CONTROLLERS
+        if self.control_type not in known:
             raise ValueError(f"unknown control_type {self.control_type!r}")
-        if cfg.load_init_states:
-            raise NotImplementedError("the initial-state pool is not ported yet")
-        self.robot = compile_robot(cfg.agent_type, use_torque=self.control_type == "torque")
+        use_torque = self.control_type in ("torque",) + NEW_CONTROLLERS
+        self.robot = compile_robot(cfg.agent_type, use_torque=use_torque)
         self.model = model or compile_from_config(cfg)
         self.tables = physics_tables(self.model)
         self.tables.update(
@@ -155,6 +164,12 @@ class ArmEnv:
         # the arm kernel's wrapper (kernel on CUDA, plain on CPU); its
         # ``free`` is the free-part kernel's wrapper for the settle rounds
         self.physics = ArmMegaPhysics(self.tables, self.robot, cfg.sim, self.device)
+        # the reset's settle rounds: the free-part kernel, or the lane backend
+        self._settle_physics = (
+            make_batched_substeps(self.tables, cfg.sim, self.device)
+            if cfg.sim.use_pallas == "lane"
+            else self.physics.free
+        )
 
         m, r = self.model, self.robot
         self._P = m.n_parts
@@ -170,7 +185,7 @@ class ArmEnv:
 
         # action layout
         spec = AGENT_SPECS[cfg.agent_type]
-        direct = self.control_type in ("impedance", "torque")
+        direct = self.control_type in ("impedance", "torque") + NEW_CONTROLLERS
         self.gripper_action_dims = {
             arm: (
                 len(_GRIPPER_SIGNS[spec["grippers"][arm][0]])
@@ -206,6 +221,18 @@ class ArmEnv:
         self._identity_quat = f32([1.0, 0.0, 0.0, 0.0])
         self._conn_part = i64(m.conn_part)
         self._tt = self.physics._plain.tables
+        if self.control_type in NEW_CONTROLLERS:
+            self._ctrl_consts = self._controller_constants()
+        # initial-state pool (utils/init_pool), as tensors on the device
+        self._init_pool = None
+        if cfg.load_init_states:
+            self.set_init_state_pool(load_pool(cfg.load_init_states))
+
+    def set_init_state_pool(self, pool) -> None:
+        """Install an initial-state pool (a dict of stacked arrays or a list
+        of snapshots, see ``utils.init_pool``; ``qpos``/``qvel`` are taken
+        when the pool has them); None removes it."""
+        self._init_pool = None if pool is None else pool_to_device(pool, self.device)
 
     # -- low-level control ---------------------------------------------------
 
@@ -330,6 +357,108 @@ class ArmEnv:
             k += self.gripper_action_dims[arm]
         return self._format_ctrl(arm_ctrl, grip)
 
+    def _controller_constants(self) -> dict:
+        """Gains and ranges of the torque-space controller in use, from the
+        controller config, as tensors made once on the device (per arm
+        where they are per joint)."""
+        ct = self.control_type
+        cfg_all = load_controller_config()
+        # the position controller shares the position_orientation gains
+        ccfg = cfg_all.get("position_orientation" if ct == "position" else ct, cfg_all.get(ct, {}))
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        out = {"cfg": ccfg}
+        for arm in self.arms:
+            na = len(self.robot.arm_joints[arm])
+            per_joint = lambda key, default: f32((ccfg.get(key, [default] * na) * na)[:na])
+            if ct in ("position_orientation", "position"):
+                # the nullspace posture target
+                joints = self.robot.arm_joints[arm]
+                out[arm] = {"init_q": np.asarray(self.robot.init_qpos)[joints]}
+            elif ct == "joint_impedance":
+                out[arm] = {
+                    "range": per_joint("control_range", 0.2),
+                    "kp": per_joint("kp_max", 100) * 0.5,
+                }
+            elif ct == "joint_velocity":
+                out[arm] = {"kv": per_joint("kv", 8.0)}
+        return out
+
+    def _controller_prepare(self, state: ArmState, action):
+        """The torque-space controllers: ``(ctrl [B,NA], tau_extra [B,NJ])``
+        from a normalized action [B, dof-1]. The controller torque of each
+        arm is held for the control step and enters the dynamics as
+        ``tau_extra``; the arm actuators get zero control and the gripper
+        scalars ride the regular actuator path."""
+        r = self.robot
+        ct = self.control_type
+        consts = self._ctrl_consts
+        ccfg = consts["cfg"]
+        B = action.shape[0]
+
+        fk_out = K.fk(r, state.qpos)
+        M = K.mass_matrix(r, fk_out)
+        tau_extra = torch.zeros((B, r.nj), dtype=torch.float32, device=self.device)
+        k = 0
+        for arm in self.arms:
+            arm_j = self._arm_joints[arm]
+            na = len(r.arm_joints[arm])
+            if ct in ("position_orientation", "position"):
+                width = 6 if ct == "position_orientation" else 3
+                a = action[:, k : k + width]
+                k += width
+                eef_pos, eef_quat = K.eef_pose(r, fk_out, arm)
+                goal_pos = eef_pos + a[:, :3] * ccfg.get("control_range_pos", 0.05)
+                if ct == "position_orientation":
+                    d_euler = a[:, 3:6] * ccfg.get("control_range_ori", 0.2)
+                    goal_mat = T.quat_to_mat(
+                        T.euler_to_quat(d_euler * (180.0 / math.pi), eef_quat)
+                    )
+                else:
+                    goal_mat = T.quat_to_mat(eef_quat)
+                tau_arm = osc_torques(
+                    r, arm, fk_out, M, state.qpos, state.qvel, goal_pos, goal_mat,
+                    ccfg.get("initial_impedance_pos", 150.0),
+                    ccfg.get("initial_impedance_ori", 150.0),
+                    ccfg.get("initial_damping", 1.0),
+                    initial_joint=consts[arm]["init_q"],
+                    position_only=(ct == "position"),
+                )
+            else:
+                a = action[:, k : k + na]
+                k += na
+                if ct == "joint_impedance":
+                    q = state.qpos[:, arm_j]
+                    tau_arm = joint_impedance_torques(
+                        M[:, arm_j][:, :, arm_j], q, state.qvel[:, arm_j],
+                        q + a * consts[arm]["range"], consts[arm]["kp"], 1.0,
+                    )
+                else:
+                    rng = ccfg.get("control_range", 1.0)
+                    rng = rng[0] if isinstance(rng, list) else rng
+                    if ct == "joint_velocity":
+                        tau_arm = joint_velocity_torques(
+                            state.qvel[:, arm_j], a * rng, consts[arm]["kv"]
+                        )
+                    else:  # joint_torque
+                        tau_arm = a * rng
+            tau_extra[:, arm_j] = tau_extra[:, arm_j] + tau_arm
+
+        grip = {}
+        for arm in self.arms:
+            grip[arm] = action[:, k]
+            k += self.gripper_action_dims[arm]
+        # zero arm actuator commands; the gripper is still position-servoed
+        zero = lambda arm: torch.zeros(
+            (B, len(r.arm_actuators[arm])), dtype=torch.float32, device=self.device
+        )
+        ctrl = self._format_ctrl({arm: zero(arm) for arm in self.arms}, grip)
+        return ctrl, tau_extra
+
+    def _controller_step(self, state: ArmState, action) -> ArmState:
+        # motors get zero ctrl; the controller torque enters via tau_extra
+        ctrl, tau_extra = self._controller_prepare(state, action)
+        return self._substeps(state, ctrl, tau_extra, self.config.n_substeps)
+
     def _step_physics_batch(self, states: ArmState, actions) -> ArmState:
         """Control dispatch + physics + connect machinery + post-connect
         snap-back; no reward."""
@@ -339,9 +468,11 @@ class ArmEnv:
             for _ in range(cfg.action_repeat):
                 ctrl = self._ik_ctrl(states.qpos, q_cmd, grip)
                 states = self._substeps(states, ctrl, None, cfg.n_substeps)
-        else:  # impedance, torque
+        elif self.control_type in ("impedance", "torque"):
             ctrl = self._direct_ctrl(actions[:, :-1])
             states = self._substeps(states, ctrl, None, cfg.n_substeps)
+        else:
+            states = self._controller_step(states, actions[:, :-1])
         return self._connect_phase(states, actions[:, -1])
 
     def _connect_phase(self, state: ArmState, connect) -> ArmState:
@@ -487,19 +618,22 @@ class ArmEnv:
 
     def _free_physics(self, parts: PartState, group, gscale, n: int) -> PartState:
         parts = PartState(*(t.contiguous() for t in parts))
-        return self.physics.free.substeps(parts, group.contiguous(), gscale.contiguous(), n)
+        return self._settle_physics.substeps(parts, group.contiguous(), gscale.contiguous(), n)
 
-    def _settle(self, state: ArmState) -> ArmState:
-        """The ten settle rounds through the free-part kernel, then the
-        reset variants."""
+    def _settle(self, state: ArmState, generator=None) -> ArmState:
+        """The ten settle rounds through the free-part kernel (or the lane
+        backend), then the reset variants; ``generator`` gives the pool
+        draws when an initial-state pool is installed."""
         parts = settle_parts(self._free_physics, state.parts, state.group, self.config.sim)
-        return apply_reset_variants(self.ops, self.config, state._replace(parts=parts))
+        return apply_reset_variants(
+            self.ops, self.config, self._init_pool, state._replace(parts=parts), generator
+        )
 
     def reset_batch(self, num_envs: int, generator: torch.Generator) -> ArmState:
         """Batched reset: placement and robot init sampled on ``generator``,
         then 10 settle rounds of 10 gravity-compensated substeps, each one
         launch of the free-part kernel."""
-        return self._settle(self._reset_unsettled(num_envs, generator))
+        return self._settle(self._reset_unsettled(num_envs, generator), generator)
 
     def restore_snapshot(self, state: ArmState, snap: dict) -> ArmState:
         """Overwrite the dynamic fields of ``state`` with one recorded demo
@@ -543,7 +677,7 @@ class ArmEnv:
         if cfg.robot_ob:
             fk_out = K.fk(r, state.qpos)
             feats = []
-            if self.control_type in ("impedance", "torque"):
+            if self.control_type in ("impedance", "torque") + NEW_CONTROLLERS:
                 for arm in self.arms:
                     feats.append(state.qpos[:, self._arm_joints[arm]])
                     feats.append(state.qvel[:, self._arm_joints[arm]])

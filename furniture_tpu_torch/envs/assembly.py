@@ -29,6 +29,7 @@ import torch
 
 from .. import transforms as T
 from ..physics.state import PartState, zero_vel
+from ..utils.init_pool import stack_pool
 
 
 def tree_where(mask, new, old):
@@ -371,11 +372,70 @@ class AssemblyOps:
         )
 
 
-def apply_reset_variants(ops: AssemblyOps, config, state):
-    """Recipe preassembly for a freshly placed batch. The initial-state pool
-    (``load_init_states``) is not ported yet: ``CursorEnv`` refuses it."""
+# dtypes of the pool's fields on the device (those of the state's fields)
+_POOL_DTYPES = {
+    "pos": torch.float32, "quat": torch.float32, "group": torch.int32,
+    "weld_active": torch.bool, "conn_connected": torch.bool,
+    "num_connected": torch.int32, "qpos": torch.float32, "qvel": torch.float32,
+}
+
+
+def pool_to_device(pool, device) -> dict:
+    """An initial-state pool (a dict of stacked numpy arrays or a list of
+    snapshots, see ``utils.init_pool``) as tensors on ``device``, built once
+    so that a reset gathers from it without a host copy."""
+    if isinstance(pool, list):
+        pool = stack_pool(pool)
+    return {
+        k: torch.as_tensor(np.asarray(v), device=device).to(_POOL_DTYPES.get(k, torch.float32))
+        for k, v in pool.items()
+    }
+
+
+def pool_draw(n: int, num_envs: int, generator: torch.Generator, device):
+    """Per env, a pool index in [0, n) and whether the pool entry is used
+    (a uniform draw above 0.2, the reference's probability of 0.8): two
+    draws from ``generator``, the indices first."""
+    idx = torch.randint(0, n, (num_envs,), generator=generator, device=device)
+    use = torch.rand((num_envs,), generator=generator, device=device) > 0.2
+    return idx, use
+
+
+def apply_reset_variants(ops: AssemblyOps, config, pool, state, generator=None):
+    """Recipe preassembly and initial-state-pool sampling for a freshly
+    placed batch. ``pool`` is a dict of tensors on the state's device
+    (:func:`pool_to_device`) or None. With a pool, each env takes the entry
+    :func:`pool_draw` gives it where the draw says so and keeps the sampled
+    placement elsewhere; velocities are zeroed and ``subtask`` is recomputed
+    from the groups."""
     if config.preassembled:
         state = ops.preassemble(state, config.preassembled)
+    if pool is not None:
+        if generator is None:
+            raise ValueError("a reset with an initial-state pool needs the generator")
+        B = state.group.shape[0]
+        idx, use = pool_draw(len(pool["pos"]), B, generator, state.group.device)
+
+        def pick(name, cur):
+            if name not in pool:
+                return cur
+            m = use.reshape((B,) + (1,) * (cur.dim() - 1))
+            return torch.where(m, pool[name][idx], cur)
+
+        state = state._replace(
+            parts=zero_vel(state.parts._replace(
+                pos=pick("pos", state.parts.pos), quat=pick("quat", state.parts.quat)
+            )),
+            group=pick("group", state.group),
+            weld_active=pick("weld_active", state.weld_active),
+            conn_connected=pick("conn_connected", state.conn_connected),
+            num_connected=pick("num_connected", state.num_connected),
+        )
+        if hasattr(state, "qpos") and "qpos" in pool:
+            state = state._replace(
+                qpos=pick("qpos", state.qpos), qvel=pick("qvel", state.qvel)
+            )
+        state = state._replace(subtask=ops.next_subtask(state.group))
     return state
 
 

@@ -5,7 +5,9 @@ The port's counterpart of ``furniture_tpu.envs.cursor``, written for a batch
 of envs at once. The action layout is 15-dim: 2 cursors × (move3, rotate3,
 select1) + connect1. Each control step zeroes all part velocities,
 gravity-compensates held groups and runs ``n_substeps`` physics substeps
-through the free-part kernel (``physics/megakernel.py``); a connect snaps
+through the free-part kernel (``physics/megakernel.py``) or, with
+``SimConfig(use_pallas="lane")``, through the lane-solver backend
+(``physics/lane_solver.py``); a connect snaps
 site2's group onto site1 after ``num_connect_steps`` aligned attempts and
 welds the two groups. The reward is sparse: ``success_reward`` per new
 connect, minus ``unstable_penalty_coef`` for a lane the instability guard
@@ -29,10 +31,12 @@ from ..models import CompiledModel, compile_from_config
 from ..physics.engine import physics_tables
 from ..physics.megakernel import make_batched_substeps
 from ..physics.state import PartState, init_state, zero_vel
+from ..utils.init_pool import load_pool
 from .assembly import (
     AssemblyOps,
     apply_reset_variants,
     instability_guard,
+    pool_to_device,
     rows,
     sample_placement,
     settle_parts,
@@ -86,8 +90,6 @@ class CursorEnv:
     ):
         self.config = config or EnvConfig()
         self.device = resolve_device(device)
-        if self.config.load_init_states:
-            raise NotImplementedError("the initial-state pool is not ported yet")
         self.model = model or compile_from_config(self.config)
         self.tables = physics_tables(self.model)
         m = self.model
@@ -101,7 +103,8 @@ class CursorEnv:
             self.success_num_connects = int(m.num_connects)
         self.dof = 15
         self.ops = AssemblyOps(m, self.config, self.device)
-        # the free-part kernel's wrapper: kernel on CUDA, plain on CPU
+        # the batched substeps per SimConfig.use_pallas: the free-part
+        # kernel's wrapper (kernel on CUDA, plain on CPU) or the lane backend
         self.physics = make_batched_substeps(self.tables, self.config.sim, self.device)
 
         dev = self.device
@@ -123,6 +126,15 @@ class CursorEnv:
         self._hi_bound = f32([b, b, b])
         self._cursor_start = f32([[-0.2, 0.0, ms / 2], [0.2, 0.0, ms / 2]])
         self._identity_quat = f32([1.0, 0.0, 0.0, 0.0])
+        # initial-state pool (utils/init_pool), as tensors on the device
+        self._init_pool = None
+        if self.config.load_init_states:
+            self.set_init_state_pool(load_pool(self.config.load_init_states))
+
+    def set_init_state_pool(self, pool) -> None:
+        """Install an initial-state pool (a dict of stacked arrays or a list
+        of snapshots, see ``utils.init_pool``); None removes it."""
+        self._init_pool = None if pool is None else pool_to_device(pool, self.device)
 
     def _physics(self, parts: PartState, group, gscale, n: int) -> PartState:
         parts = PartState(*(t.contiguous() for t in parts))
@@ -247,17 +259,20 @@ class CursorEnv:
             t=i32(0, (B,)),
         )
 
-    def reset_from_parts(self, parts: PartState) -> CursorState:
+    def reset_from_parts(self, parts: PartState, generator=None) -> CursorState:
         """Settle sampled parts (10 rounds of 10 gravity-compensated substeps,
-        each one kernel launch) and build the initial state."""
+        each one kernel launch) and build the initial state. ``generator``
+        gives the pool draws when an initial-state pool is installed."""
         B = parts.pos.shape[0]
         group = torch.arange(self._P, dtype=torch.int32, device=self.device)[None].repeat(B, 1)
         parts = settle_parts(self._physics, parts, group, self.config.sim)
-        return apply_reset_variants(self.ops, self.config, self._initial_state(parts))
+        return apply_reset_variants(
+            self.ops, self.config, self._init_pool, self._initial_state(parts), generator
+        )
 
     def reset_batch(self, num_envs: int, generator: torch.Generator) -> CursorState:
         """Batched reset: placement sampled on ``generator``, then settle."""
-        return self.reset_from_parts(self.sample_parts(num_envs, generator))
+        return self.reset_from_parts(self.sample_parts(num_envs, generator), generator)
 
     def observe(self, state: CursorState) -> dict:
         """Observation dict (batched): object_ob [B,7P], robot_ob [B,8],

@@ -17,6 +17,8 @@ Shapes: B envs, P parts, K contact lanes (static capacity).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -107,27 +109,32 @@ def _tangent_basis(n):
     return t1, t2
 
 
-def _solve_contacts(
-    c: Contacts,
-    group,
-    g_com,
-    g_inv_mass,
-    g_inv_inertia,
-    lin_vel,
-    ang_vel,
-    dt: float,
-    iters: int,
-    relaxation: float,
-    slop: float,
-    lam0,
-    warm_cap=None,
-):
-    """Impulse-accumulating mass-split Jacobi solve, warm-started from
-    ``lam0`` [B,K,3], capped at ``WARM_CAP_ACC`` or, per lane, at
-    ``warm_cap`` [K]. Lanes with ``part_b == -1`` and a ``vel_b`` are
-    kinematic colliders moving at that prescribed velocity. Returns the
-    updated group velocities, the converged ``lam`` for the next substep
-    and the impulse [B,K,3] each lane applied to its part a."""
+class LanePrep(NamedTuple):
+    """Per-lane constants of one contact solve (every field leads with B
+    unless noted): what both solvers, the warm-started one below and the
+    lane solver of ``physics/lane_solver.py``, sweep over."""
+
+    pa: torch.Tensor          # [K] side-a part
+    pb: torch.Tensor          # [K] side-b part (0 where the lane has none)
+    hb: torch.Tensor          # [K] float: the lane has a side b
+    r_a: torch.Tensor         # [B,K,3] contact point from the a group's COM
+    r_b: torch.Tensor         # [B,K,3]
+    dirs: torch.Tensor        # [B,K,3dir,3]: normal, tangent 1, tangent 2
+    inv_w: torch.Tensor       # [B,K,3] inverse effective mass per direction
+    bias: torch.Tensor        # [B,K] depenetration velocity
+    fmask: torch.Tensor       # [B,K] float: lane active
+    lane_scale: torch.Tensor  # [B,K] relaxation / contention
+    mem_a: torch.Tensor       # [B,K,P] float: part in the a side's group
+    mem_b: torch.Tensor       # [B,K,P]
+
+
+def lane_prep(
+    c: Contacts, group, g_com, g_inv_mass, g_inv_inertia, dt: float,
+    relaxation: float, slop: float,
+) -> LanePrep:
+    """Lever arms, tangent basis, effective masses (floored at 1e-8), the
+    solref Baumgarte bias capped at 0.5 m/s, group membership and the
+    mass-splitting lane scale of every contact lane."""
     fmask = (c.mask & (c.depth > -slop)).to(torch.float32)          # [B,K]
     has_b = c.part_b >= 0                                          # [K]
     hb = has_b.to(torch.float32)
@@ -171,6 +178,33 @@ def _solve_contacts(
     n_a = cnt_p[:, pa]
     n_b = cnt_p[:, pb] * hb
     lane_scale = relaxation / torch.clamp(torch.maximum(n_a, n_b), min=1.0)
+    return LanePrep(pa, pb, hb, r_a, r_b, dirs, inv_w, bias, fmask, lane_scale, mem_a, mem_b)
+
+
+def _solve_contacts(
+    c: Contacts,
+    group,
+    g_com,
+    g_inv_mass,
+    g_inv_inertia,
+    lin_vel,
+    ang_vel,
+    dt: float,
+    iters: int,
+    relaxation: float,
+    slop: float,
+    lam0,
+    warm_cap=None,
+):
+    """Impulse-accumulating mass-split Jacobi solve, warm-started from
+    ``lam0`` [B,K,3], capped at ``WARM_CAP_ACC`` or, per lane, at
+    ``warm_cap`` [K]. Lanes with ``part_b == -1`` and a ``vel_b`` are
+    kinematic colliders moving at that prescribed velocity. Returns the
+    updated group velocities, the converged ``lam`` for the next substep
+    and the impulse [B,K,3] each lane applied to its part a."""
+    pa, pb, hb, r_a, r_b, dirs, inv_w, bias, fmask, lane_scale, mem_a, mem_b = lane_prep(
+        c, group, g_com, g_inv_mass, g_inv_inertia, dt, relaxation, slop
+    )
 
     mem_ab_t = (mem_a - mem_b).transpose(1, 2)                      # [B,P,K]
     mem_a_t = mem_a.transpose(1, 2)
@@ -259,19 +293,30 @@ def _part_tables(model_np, device) -> dict:
 def make_substep(model_np, cfg_sim, device):
     """Build the batched single-substep function
     ``substep(state, group, gscale, lam_warm) -> (state, lam)``, closed over
-    the model's tables on ``device``."""
+    the model's tables on ``device``.
+
+    With ``cfg_sim.use_pallas == "lane"`` the contacts are solved by the
+    lane solver (``lane_solver.solve_contacts_lane``: its CUDA kernel for
+    CUDA tensors, its plain version for CPU tensors), cold-started: the
+    substep takes and returns no warm start (``supports_warm`` is False and
+    :func:`substeps` carries none). As in the JAX package, a caller that
+    passes ``extra_contacts`` (the arm substep, which needs the robot warm
+    cap and the lanes' impulses, neither of which the lane solver has) gets
+    the warm-started ``_solve_contacts`` in every mode."""
     attach_betas(model_np, cfg_sim)
     tt = torch_tables(model_np, device)
     pt = _part_tables(model_np, device)
     dt = cfg_sim.timestep
     slop = cfg_sim.contact_slop
     NP = len(model_np["_pairs"])
+    lane = cfg_sim.use_pallas == "lane"
+    if lane:
+        from .lane_solver import solve_contacts_lane
 
-    def substep(state: PartState, group, gravity_scale, lam_warm, extra_contacts=None):
-        """``extra_contacts`` (a prebuilt :class:`Contacts`, the robot
-        gripper lanes) are appended to the floor, pair and SAT lanes with
-        the tighter robot warm cap; their impulses are then returned as a
-        third value."""
+    def solver_args(state: PartState, group, gravity_scale):
+        """The group membership [B,P,P] and the contact solve's arguments
+        for one substep from ``state``: aggregates, gravity applied to the
+        linear velocity, and the floor, pair and SAT lanes."""
         member, g_com, g_inv_mass, g_inv_inertia = _group_aggregates(pt, state, group)
         lin_vel = state.lin_vel.clone()
         lin_vel[..., 2] = lin_vel[..., 2] + dt * cfg_sim.gravity * gravity_scale
@@ -286,31 +331,35 @@ def make_substep(model_np, cfg_sim, device):
         )
         ec = edge_contacts(tt, state.pos, state.quat, group, slop, corner_hit=ch)
         contacts = concat_contacts(fc, concat_contacts(pc, ec))
+        return member, (
+            contacts, group, g_com, g_inv_mass, g_inv_inertia, lin_vel, state.ang_vel,
+            dt, cfg_sim.solver_iters, cfg_sim.relaxation, slop,
+        )
+
+    def substep(state: PartState, group, gravity_scale, lam_warm, extra_contacts=None):
+        """``extra_contacts`` (a prebuilt :class:`Contacts`, the robot
+        gripper lanes) are appended to the floor, pair and SAT lanes with
+        the tighter robot warm cap; their impulses are then returned as a
+        third value."""
+        member, solve_args = solver_args(state, group, gravity_scale)
+        g_com = solve_args[2]
         warm_cap = None
         if extra_contacts is not None:
+            contacts = solve_args[0]
             n_base = contacts.depth.shape[1]
             n_extra = extra_contacts.depth.shape[1]
-            contacts = concat_contacts(contacts, extra_contacts)
+            solve_args = (concat_contacts(contacts, extra_contacts),) + solve_args[1:]
+            dev = contacts.depth.device
             warm_cap = torch.cat([
-                torch.full((n_base,), WARM_CAP_ACC, device=lin_vel.device),
-                torch.full((n_extra,), ROBOT_WARM_CAP_ACC, device=lin_vel.device),
+                torch.full((n_base,), WARM_CAP_ACC, device=dev),
+                torch.full((n_extra,), ROBOT_WARM_CAP_ACC, device=dev),
             ])
 
-        lv, av, lam, imp = _solve_contacts(
-            contacts,
-            group,
-            g_com,
-            g_inv_mass,
-            g_inv_inertia,
-            lin_vel,
-            state.ang_vel,
-            dt,
-            cfg_sim.solver_iters,
-            cfg_sim.relaxation,
-            slop,
-            lam_warm,
-            warm_cap,
-        )
+        if lane and extra_contacts is None:
+            lv, av = solve_contacts_lane(*solve_args)
+            lam = imp = None
+        else:
+            lv, av, lam, imp = _solve_contacts(*solve_args, lam_warm, warm_cap)
         # safety velocity clamp (bounds energy so lanes never NaN)
         lv = torch.clamp(lv, -cfg_sim.max_velocity, cfg_sim.max_velocity)
         av = torch.clamp(av, -cfg_sim.max_velocity, cfg_sim.max_velocity)
@@ -323,17 +372,23 @@ def make_substep(model_np, cfg_sim, device):
 
     # 8 floor lanes per geom + 16 vertex + 1 SAT edge lane per pair
     substep.n_base_lanes = 8 * len(model_np["geom_part"]) + 17 * NP
+    # the lane backend is cold-started: substeps() carries no warm start
+    substep.supports_warm = not lane
     substep.tables = tt
+    substep.solver_args = solver_args
     return substep
 
 
 def substeps(substep_fn, state: PartState, group, gravity_scale, n: int) -> PartState:
     """Run ``n`` substeps; the converged contact impulses carry across
-    substeps as the next substep's warm start (zero at the first)."""
+    substeps as the next substep's warm start (zero at the first), unless
+    the substep is the cold-started lane backend."""
     B = state.pos.shape[0]
-    lam = torch.zeros(
-        (B, substep_fn.n_base_lanes, 3), dtype=torch.float32, device=state.pos.device
-    )
+    lam = None
+    if substep_fn.supports_warm:
+        lam = torch.zeros(
+            (B, substep_fn.n_base_lanes, 3), dtype=torch.float32, device=state.pos.device
+        )
     for _ in range(n):
         state, lam = substep_fn(state, group, gravity_scale, lam)
     return state

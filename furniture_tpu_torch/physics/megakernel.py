@@ -20,6 +20,7 @@ that existed only for the TPU's matrix unit) and wraps the launch:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -63,10 +64,40 @@ def library() -> ctypes.CDLL:
 
 
 def make_batched_substeps(tables, cfg_sim, device):
-    """Batched-substeps entry ``f(parts[B], group[B,P], gscale[B,P], n)``:
-    the kernel's wrapper (kernel on CUDA tensors, plain version on CPU
-    tensors). Returns the :class:`MegaPhysics` whose ``substeps`` it is."""
+    """Batched-substeps entry ``f(parts[B], group[B,P], gscale[B,P], n)`` per
+    ``SimConfig.use_pallas``: ``"lane"`` gives the :class:`LanePhysics`
+    (plain narrow phase and integration, contacts solved cold by the lane
+    solver); every other value (``"auto"``, ``"on"``, ``"off"``) gives the
+    :class:`MegaPhysics`
+    (the free-part kernel on CUDA tensors, its plain version on CPU
+    tensors). Returns the object whose ``substeps`` it is."""
+    if cfg_sim.use_pallas == "lane":
+        return LanePhysics(tables, cfg_sim, device)
     return MegaPhysics(tables, cfg_sim, device)
+
+
+class LanePhysics:
+    """Free-part substeps on the lane-solver backend for one model: every
+    substep runs the plain narrow phase and integration of ``engine.py`` and
+    solves its contacts through ``lane_solver.solve_contacts_lane`` (its
+    CUDA kernel on CUDA tensors, its plain version on CPU tensors), with no
+    warm start carried across substeps. The kernel's launches are counted in
+    ``lane_solver.launches``: one per substep."""
+
+    def __init__(self, model_np, cfg_sim, device):
+        self._substep = make_substep(model_np, cfg_sim, torch.device(device))
+
+    def solver_args(self, parts: PartState, group, gscale):
+        """The arguments ``solve_contacts_lane`` gets in a substep from
+        this state."""
+        return self._substep.solver_args(parts, group, gscale)[1]
+
+    def substeps(self, parts: PartState, group, gscale, n: int) -> PartState:
+        """Run ``n`` cold-started substeps for a batch."""
+        kind = parts.pos.device.type
+        if kind not in ("cuda", "cpu"):
+            raise RuntimeError(f"no free-part physics for device {parts.pos.device}")
+        return plain_substeps(self._substep, parts, group, gscale, n)
 
 
 def lane_lists(part_a, part_b, Kf: int, P: int):
@@ -221,7 +252,10 @@ class MegaPhysics:
                 "part_off", "part_nfloor", "part_ent",
             )
         }
-        self._plain = make_substep(model_np, cfg_sim, self.device)
+        # the plain version of *this* kernel: warm-started in every mode
+        self._plain = make_substep(
+            model_np, dataclasses.replace(cfg_sim, use_pallas="off"), self.device
+        )
 
     # -- the two versions ----------------------------------------------------
 

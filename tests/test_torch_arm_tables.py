@@ -194,14 +194,55 @@ def test_kernel_route_refuses_cpu_tensors(sawyer_env):
 
 
 def test_registry_has_arm_ids():
-    """The ids of the JAX registry for the five agents; the torque-space
-    controllers and the initial-state pool raise by name."""
+    """The ids of the JAX registry for the five agents; an unknown control
+    type is refused by name."""
     from furniture_tpu_torch.api import REGISTERED_ENVS
 
     for agent in AGENTS:
         assert f"IKEA{agent}-v0" in REGISTERED_ENVS
         assert f"Furniture{agent}Env" in REGISTERED_ENVS
-    with pytest.raises(NotImplementedError, match="joint_torque"):
-        ArmEnv(EnvConfig(agent_type="Sawyer", control_type="joint_torque"), device="cpu")
-    with pytest.raises(NotImplementedError, match="initial-state pool"):
-        ArmEnv(EnvConfig(agent_type="Sawyer", load_init_states="x.pkl"), device="cpu")
+    with pytest.raises(ValueError, match="joint_torques"):
+        ArmEnv(EnvConfig(agent_type="Sawyer", control_type="joint_torques"), device="cpu")
+
+
+def test_torque_space_control_type_is_accepted():
+    """``joint_torque`` builds on the torque variant of the robot with the
+    direct action layout, and its action reaches the joints as
+    ``tau_extra`` scaled by the configured range."""
+    from furniture_tpu_torch.api import make_vec_env
+
+    vec = make_vec_env("IKEASawyer-v0", 2, device="cpu", control_type="joint_torque",
+                       sim=SimConfig(control_freq=100))
+    env = vec.env
+    jr = j_compile_robot("Sawyer", use_torque=True)
+    assert env.dof == jr.dof + 2 and env.robot.na == jr.na
+    np.testing.assert_array_equal(env.robot.act_ctrlrange, jr.act_ctrlrange)
+    s = env._reset_unsettled(2, torch.Generator().manual_seed(0))
+    act = torch.ones((2, env.dof - 1))
+    ctrl, tau = env._controller_prepare(s, act)
+    arm_j = np.asarray(env.robot.arm_joints["right"])
+    assert torch.allclose(tau[:, arm_j], torch.full((2, len(arm_j)), 0.5))
+    rest = np.setdiff1d(np.arange(env.robot.nj), arm_j)
+    assert not tau[:, rest].any()
+    assert not ctrl[:, np.asarray(env.robot.arm_actuators["right"])].any()
+
+
+def test_init_state_pool_is_accepted(tmp_path):
+    """``load_init_states`` loads a pool file at construction and
+    ``set_init_state_pool`` installs one later; both put tensors on the
+    env's device."""
+    from furniture_tpu_torch.utils.init_pool import save_pool, snapshot
+
+    env = ArmEnv(EnvConfig(agent_type="Sawyer", sim=SimConfig(control_freq=100)), device="cpu")
+    assert env._init_pool is None
+    s = env._reset_unsettled(3, torch.Generator().manual_seed(0))
+    pool = snapshot(s)                       # a batched state is a stacked pool
+    assert pool["qpos"].shape == (3, env.robot.nj)
+    env.set_init_state_pool(pool)
+    assert env._init_pool["qpos"].dtype == torch.float32
+    assert env._init_pool["conn_connected"].dtype == torch.bool
+    path = str(tmp_path / "pool.pkl")
+    save_pool(path, pool)
+    env2 = ArmEnv(EnvConfig(agent_type="Sawyer", load_init_states=path,
+                            sim=SimConfig(control_freq=100)), device="cpu")
+    assert torch.equal(env2._init_pool["pos"], env._init_pool["pos"])

@@ -10,9 +10,10 @@ JAX package, so it also runs where only the port is installed:
 import pytest
 import torch
 
-from furniture_tpu_torch.config import EnvConfig
+from furniture_tpu_torch.config import EnvConfig, SimConfig
 from furniture_tpu_torch.envs.arm import ArmEnv
 from furniture_tpu_torch.envs.cursor import CursorEnv
+from furniture_tpu_torch.physics import lane_solver
 from furniture_tpu_torch.physics.state import PartState
 from furniture_tpu_torch.robots import kinematics as K
 
@@ -95,3 +96,42 @@ def test_arm_kernel_matches_plain(agent):
         assert torch.equal(ref[3], out[3])
         assert bool(out[3].any()) == want_touch
     assert ph.launches == launches + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["table_lack_0825", "chair_balser_0115"])
+def test_lane_solver_kernel_matches_plain(name):
+    """The lane solver's kernel against its plain version at B = 32 (TF32
+    off) on the contacts of a reset dropped onto the floor with the parts
+    pushed along and into it: 12 and 24 sweeps within 1e-4 on both
+    velocities, two launches bit-identical, one launch counted per call.
+    table_lack (K = 210) keeps a lane per thread in registers,
+    chair_balser_0115 (K = 4153) re-reads its lanes each sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    env = CursorEnv(EnvConfig(furniture_name=name, sim=SimConfig(use_pallas="lane")), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    B = 32
+    st = env.reset_batch(B, gen)
+    ones = torch.ones((B, env._P), device=dev)
+    parts = env.physics.substeps(st.parts, st.group, ones, 50)
+    push = torch.tensor([0.1, 0.1, -0.1], device=dev)
+    parts = parts._replace(lin_vel=parts.lin_vel + push, ang_vel=parts.ang_vel + 0.1)
+    args = env.physics.solver_args(parts, st.group, ones)
+    assert bool(args[0].mask.any())
+    for iters in (12, 24):
+        a = args[:8] + (iters,) + args[9:]
+        before = lane_solver.launches
+        lv, av = lane_solver.solve_contacts_lane(*a)
+        lv2, av2 = lane_solver.solve_contacts_lane(*a)
+        assert lane_solver.launches == before + 2
+        rl, ra = lane_solver.plain_solve_contacts_lane(*a)
+        torch.cuda.synchronize()
+        assert lane_solver.launches == before + 2      # the plain version launches nothing
+        assert torch.equal(lv, lv2) and torch.equal(av, av2)
+        assert (lv - rl).abs().max().item() < 1e-4
+        assert (av - ra).abs().max().item() < 1e-4
+        assert (lv - a[5]).abs().max().item() > 1e-3   # the solve did something

@@ -26,9 +26,11 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    """Importing the port, building a table_lack cursor env and a Sawyer arm
-    env and stepping both loads neither jax nor the JAX package (fresh
-    interpreter: this process has imported jax already)."""
+    """Importing the port (the planners, the torque-space controllers, the
+    pool utilities and the lane solver too), building a table_lack cursor
+    env and a Sawyer arm env and stepping both, one lane step and one plan,
+    loads neither jax nor the JAX package (fresh interpreter: this process
+    has imported jax already)."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -45,6 +47,16 @@ def test_port_imports_no_jax():
         "vec.reset()\n"
         "obs, rew, done, info = vec.step(torch.zeros(2, vec.env.dof))\n"
         "assert torch.isfinite(vec.state.qpos).all() and vec.env.physics.K == 1260\n"
+        "import furniture_tpu_torch.controllers.osc, furniture_tpu_torch.utils.init_pool\n"
+        "from furniture_tpu_torch.physics import lane_solver\n"
+        "from furniture_tpu_torch.planning import MPPIConfig, make_mppi\n"
+        "lane = ft.CursorEnv(EnvConfig(sim=SimConfig(control_freq=100, use_pallas='lane')),\n"
+        "                    device='cpu')\n"
+        "s1 = lane.step_batch(lane.reset_batch(1, g), torch.zeros(1, 15))[0]\n"
+        "assert torch.isfinite(s1.parts.pos).all() and lane_solver.launches == 0\n"
+        "plan = make_mppi(lane, MPPIConfig(horizon=2, n_samples=2))\n"
+        "mean, info = plan(s1, torch.zeros(2, 15), g)\n"
+        "assert torch.isfinite(mean).all() and torch.isfinite(info['best_cost'])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'furniture_tpu' or m.startswith('furniture_tpu.')]\n"
         "print('LOADED', bad)\n"
