@@ -9,7 +9,9 @@ package is imported) on the card:
    checkout (one ``nvcc`` per source, started together: the free-part
    kernel ``megakernel.cu`` and the arm kernel ``arm_megakernel.cu``, both
    on the shared header ``physics_common.cuh``, and the lane solver
-   ``lane_solver.cu``) and prints the ``-Xptxas -v`` report;
+   ``lane_solver.cu``; beside them the phase-clock builds of the two
+   physics kernels, the same sources with ``-DFT_PHASE_CLOCKS``) and prints
+   the ``-Xptxas -v`` report;
 2. kernel vs plain: each kernel against its plain PyTorch version on the
    card, TF32 off, at the shapes the main paths give it.
    Free-part kernel (table_lack, B=256, from a settled reset; n = 5 within
@@ -22,7 +24,9 @@ package is imported) on the card:
    (n = 1 and 5 within 1e-4). Two parts welded where they lie apart make a
    body whose 50-substep motion is chaotic: there the plain version's own
    spread under a 1e-7 input perturbation is measured and the kernel is
-   held to 10x it where that exceeds the bound.
+   held to 10x it where that exceeds the bound. Every case is launched
+   twice: the two results must agree bit for bit (the sums are taken in a
+   fixed order, no float atomics).
    Arm kernel (B=256): Sawyer (K = 1260) from a reset with part 0 placed
    between the fingers and the gripper closing, n = 5 within 5e-4 and
    n = 50 within 1e-3; Baxter (K = 1610) with part 0 on a fingertip, n = 5
@@ -35,7 +39,8 @@ package is imported) on the card:
    held to the bound, at most a tenth of the envs may exceed it, and the
    maximum is held to 10x the plain version's own spread under position
    noise of 1e-7 and 1e-6, all printed. Touch flags must be equal, and set
-   where the part is gripped.
+   where the part is gripped. Two launches on one input must agree bit for
+   bit.
    Lane solver (B=256), on contacts taken from real states: table_lack
    (K = 210) and chair_balser_0115 (K = 4153, P = 8) from a reset dropped
    onto the floor, and table_lack with two recipe steps preassembled (welded
@@ -66,8 +71,18 @@ package is imported) on the card:
    step, finite and not unstable;
 4. times with CUDA events after a warm-up: env steps/s of ``step_batch``
    for the cursor (B = 4096) and for Sawyer impedance (B = 512) and ik
-   (B = 256), each kernel's ms per launch at n = 50, its plain version's
-   ms, and the bound from its bytes and FP32 operations; for the Sawyer
+   (B = 256), the cursor and impedance steps as the median of three rounds
+   of 10 steps with every round printed, each beside the ms the host took
+   to enqueue a step (where the two agree the host sets the pace), each
+   kernel's ms per launch at n = 50, its plain version's ms, and the bound
+   from its bytes and FP32 operations; for the two
+   physics kernels also the blocks an SM holds, the latency floor (the block
+   barriers of a launch as the phase-clock build counts them x the measured
+   round trip of a bare barrier at that occupancy x the waves of blocks) and, from the phase-clock build, the
+   share of a block's clock each phase of a substep takes (``[time] kernel
+   phases:`` and ``[time] arm kernel phases:``); the free-part kernel also
+   with parts welded (table_lack with two recipe steps preassembled) beside
+   the free case, both at B = 4096, n = 50; for the Sawyer
    step also ``joint_dyn_matrices`` and the IK solve; the lane solver's ms
    per launch at B = 4096, K = 210, 12 sweeps, beside its wrapper (with the
    preparation in PyTorch), its plain version and ``engine._solve_contacts``
@@ -102,11 +117,30 @@ STEPS = 10
 LANE_STEPS = 5
 CTRL_STEPS = 5
 ARM_RUNS = (("impedance", 512), ("ik", 256))   # bench.py's Sawyer sizes
+# ms per launch of the two physics kernels before their redesign (n = 50;
+# B = 4096 and B = 512; NVIDIA H100 80GB HBM3, 700.00 W, this script at that
+# time): printed beside the new times, not part of the ``kernels`` line
+PREV_KERNEL_MS = 22.07
+PREV_ARM_KERNEL_MS = 19.89
+# phases of a substep as the phase-clock builds count them
+MEGA_PHASES = ("frames+aggregates", "narrow phase+prep", "first pass (gates+counts+warm start)",
+               "passes: group half", "passes: lane half", "integration+floor")
+ARM_PHASES = ("joint update+chain+hand geoms | held clamp+frames+aggregates", "narrow phase+prep",
+              "first pass (gates+counts+warm start | servo gates+actuators)",
+              "passes: group half", "passes: lane half", "integration+floor+hand-geom forces")
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+T_START = time.perf_counter()
+
+
+def stamp(section: str) -> None:
+    """Where the run's time goes: seconds since the start, per section."""
+    print(f"[clock] {time.perf_counter() - T_START:7.1f} s: {section}", flush=True)
 
 
 def card_name_and_limit() -> tuple[str, float]:
@@ -132,8 +166,69 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_and_host_ms(fn, reps: int) -> tuple[float, float]:
+    """Mean ms per call of ``fn`` over ``reps`` calls by CUDA events, and the
+    ms per call the host took to enqueue them (host clock, before the
+    synchronisation): where the two agree the host sets the pace."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host
+
+
+def median_round(fn, reps: int, rounds: int = 3):
+    """``cuda_and_host_ms`` over ``rounds`` rounds of ``reps`` calls: the
+    round with the median device time, and every round's device ms (the
+    host-paced steps move from round to round)."""
+    got = sorted(cuda_and_host_ms(fn, reps) for _ in range(rounds))
+    return got[len(got) // 2], [round(ms, 3) for ms, _ in got]
+
+
 def max_err(a, b) -> float:
     return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_shares(clocks, names, n: int):
+    """Shares of a block's clock per phase (mean over the envs) and the
+    cycles a block spends on a substep, from a ``[B, phases]`` clock tensor
+    of a launch of ``n`` substeps."""
+    c = clocks[:, : len(names)].double()
+    shares = (c / c.sum(-1, keepdim=True).clamp(min=1)).mean(0).tolist()
+    return shares, c.sum(-1).mean().item() / n
+
+
+def latency_floor(phys, clocks, sm_count: int):
+    """(floor ms, blocks an SM, barriers a launch, barrier round trip in
+    us): the block barriers a block passed in the substep loop of a launch
+    (counted by the phase-clock build, the last column of ``clocks``), times
+    the measured round trip of a bare barrier with as many blocks of the
+    kernel's size resident on every SM as the kernel has, times the waves the
+    blocks come in."""
+    resident = phys.resident_blocks()
+    counts = clocks[:, -1]
+    barriers = int(counts[0])
+    if barriers <= 0 or not bool((counts == barriers).all()):
+        fail(f"the blocks of a launch counted different numbers of barriers ({counts.unique().tolist()})")
+    probe_n = 20000
+    blocks = resident * sm_count
+    phys.barrier_probe(blocks, 100)  # warm-up
+    trip_ms = cuda_ms(lambda: phys.barrier_probe(blocks, probe_n), 3) / probe_n
+    waves = -(-clocks.shape[0] // blocks)
+    return waves * barriers * trip_ms, resident, barriers, trip_ms * 1e3
 
 
 def main() -> None:
@@ -167,21 +262,28 @@ def main() -> None:
           f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}", flush=True)
 
     # -- 1. build ---------------------------------------------------------------
+    stamp("build")
     t0 = time.perf_counter()
     sources = [megakernel.SOURCE, arm_megakernel.SOURCE, lane_solver.SOURCE]
-    procs = [_cuda.start_build(s) for s in sources]
+    builds = [(s, ()) for s in sources] + [(s, _cuda.PHASE_CLOCKS) for s in sources[:2]]
+    procs = [_cuda.start_build(s, d) for s, d in builds]
     for p in procs:
         _cuda.finish_build(p)
-    for s in sources:
-        print(f"[build] {os.path.relpath(s, HERE)} ({time.perf_counter() - t0:.1f} s):")
-        for line in _cuda.build_log(s).splitlines():
-            if "ptxas" in line:
+    for s, d in builds:
+        print(f"[build] {os.path.relpath(s, HERE)} {' '.join('-D' + x for x in d)} "
+              f"({time.perf_counter() - t0:.1f} s):")
+        for line in _cuda.build_log(s, d).splitlines():
+            if "ptxas" in line and ("Used" in line or "spill" in line or "Compiling" in line):
                 print("   ", line.strip())
     megakernel.library()
     arm_megakernel.library()
     lane_solver.library()
+    megakernel.library(_cuda.PHASE_CLOCKS)
+    arm_megakernel.library(_cuda.PHASE_CLOCKS)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
 
     # -- 2. kernel vs plain -------------------------------------------------------
+    stamp("free-part kernel vs plain")
     worst = 0.0   # over the checks held at their stated bounds
     spread_cases = []
     gen = torch.Generator(device=dev)
@@ -197,10 +299,13 @@ def main() -> None:
         for n, tol in checks:
             ref = phys.plain_substeps(parts, group, gscale, n)
             out = phys.kernel_substeps(parts, group, gscale, n)
+            again = phys.kernel_substeps(parts, group, gscale, n)
             torch.cuda.synchronize()
             for name, b in zip(PartState._fields, out):
                 if not torch.isfinite(b).all():
                     fail(f"{tag} n={n}: kernel {name} not finite")
+            if not same_bits(out, again):
+                fail(f"{tag} n={n}: two launches on one input differ")
             err = max_err(ref, out)
             per = {f: round(max_err([a], [b]), 9) for f, a, b in zip(PartState._fields, ref, out)}
             note = ""
@@ -215,8 +320,8 @@ def main() -> None:
                 note = f", plain vs plain(pos + 1e-7 noise) {spread:.3g}"
             else:
                 worst = max(worst, err)
-            print(f"[check] {tag} n={n}: max|kernel-plain| {err:.3g} (bound {tol:.3g}{note}) {per}",
-                  flush=True)
+            print(f"[check] {tag} n={n}: max|kernel-plain| {err:.3g} (bound {tol:.3g}{note}), "
+                  f"repeat bit-identical {per}", flush=True)
             if not err <= tol:
                 fail(f"{tag} n={n}: kernel disagrees with its plain version ({err} > {tol})")
 
@@ -225,9 +330,11 @@ def main() -> None:
         gen.manual_seed(0)
         state = env.reset_batch(CHECK_B, gen)
         P = env._P
-        nf, smem, in_smem = env.physics.lane_buffer()
-        print(f"[check] {name}: P={P} K={env.physics.K} lane working set in "
-              f"{'shared memory' if in_smem else 'global scratch'} ({smem} B shared/block)")
+        nf, smem, in_smem, in_regs = env.physics.lane_buffer()
+        where = "registers (one lane a thread)" if in_regs else (
+            "shared memory" if in_smem else "global scratch")
+        print(f"[check] {name}: P={P} K={env.physics.K} slots {env.physics.slots['KS']} lane working "
+              f"set in {where} ({smem} B shared/block, {env.physics.resident_blocks()} blocks an SM)")
         parts = state.parts._replace(
             lin_vel=state.parts.lin_vel + 0.05, ang_vel=state.parts.ang_vel + 0.1
         )
@@ -286,6 +393,7 @@ def main() -> None:
     hold(env, state.parts, state.group, gscale, "table_lack_0825 welded-by-connect+gravity-comp")
 
     # -- 2b. arm kernel vs plain --------------------------------------------------
+    stamp("arm kernel vs plain")
     arm_worst = 0.0      # over the checks held at their stated bounds
     arm_spread_cases = []
     ARM_FIELDS = PartState._fields + ("qpos", "qvel")
@@ -317,10 +425,13 @@ def main() -> None:
             args = arm_inputs(env, state, ctrl, n)
             ref = ph.plain_control_step(*args)
             out = ph.kernel_control_step(*args)
+            again = ph.kernel_control_step(*args)
             torch.cuda.synchronize()
             for t in list(out[0]) + [out[1], out[2]]:
                 if not torch.isfinite(t).all():
                     fail(f"{tag} n={n}: arm kernel output not finite")
+            if not same_bits(list(out[0]) + list(out[1:]), list(again[0]) + list(again[1:])):
+                fail(f"{tag} n={n}: two launches of the arm kernel on one input differ")
             errs = per_env(ref, out)
             err = max(v.max().item() for v in errs.values())
             med = max(v.median().item() for v in errs.values())
@@ -363,7 +474,7 @@ def main() -> None:
                 arm_worst = max(arm_worst, err)
             per = {f: round(v.max().item(), 9) for f, v in errs.items()}
             print(f"[check] arm {tag} n={n}: max|kernel-plain| {err:.3g} (bound {bound:.3g}{note}), "
-                  f"touch flags equal, {n_touch} set {per}", flush=True)
+                  f"touch flags equal, {n_touch} set, repeat bit-identical {per}", flush=True)
             if not err <= bound:
                 fail(f"{tag} n={n}: arm kernel disagrees with its plain version ({err} > {bound})")
 
@@ -398,7 +509,8 @@ def main() -> None:
     nf, smem, in_smem = env.physics.lane_buffer()
     print(f"[check] arm Sawyer table_lack_0825: K={env.physics.K} NJ={env.robot.nj} "
           f"hand geoms {env.physics.NRG}, lane working set in "
-          f"{'shared memory' if in_smem else 'global scratch'} ({smem} B shared/block)")
+          f"{'shared memory' if in_smem else 'global scratch'} ({smem} B shared/block, "
+          f"{env.physics.resident_blocks()} block(s) an SM)")
     if env.physics.K != 1260:
         fail(f"Sawyer on table_lack has K = {env.physics.K}, not 1260")
     hold_arm(env, st, ctrl, "Sawyer gripped", ((1, 5e-4),), False, True)
@@ -422,6 +534,7 @@ def main() -> None:
     hold_arm(env, st, ctrl, "Baxter part in fingertip", ((5, 5e-4),), True, True)
 
     # -- 2c. lane solver vs plain ---------------------------------------------------
+    stamp("lane solver vs plain")
     lane_worst = 0.0
     lane_cold_gap = [0.0, 0.0]
 
@@ -493,6 +606,7 @@ def main() -> None:
             lane_cold_gap = [max(lane_cold_gap[0], g_l), max(lane_cold_gap[1], g_a)]
 
     # -- 3. main path -----------------------------------------------------------
+    stamp("cursor main path")
     vec = ft.make_vec_env("IKEACursor-v0", num_envs=MAIN_B, seed=0)
     phys = vec.env.physics
     agen = torch.Generator(device=dev)
@@ -566,6 +680,7 @@ def main() -> None:
     err_small = cursor_small_batch(env, CursorEnv(EnvConfig(), device="cpu"), 3, "cursor")
 
     # -- 3b. arm main paths ---------------------------------------------------
+    stamp("arm main paths")
     from furniture_tpu_torch.convert import arm_state_from_numpy, arm_state_to_numpy
 
     arm_vecs, arm_launches, free_launches_arm = {}, {}, 0
@@ -649,6 +764,7 @@ def main() -> None:
             fail(f"{control_type} small batch: card and CPU differ in {bad}")
 
     # -- 3c. the lane path ----------------------------------------------------------
+    stamp("lane path")
     lane_sim = SimConfig(use_pallas="lane")
     lvec = ft.make_vec_env("IKEACursor-v0", num_envs=MAIN_B, seed=0, sim=lane_sim)
     lenv = lvec.env
@@ -678,6 +794,7 @@ def main() -> None:
     cursor_small_batch(lenv, CursorEnv(EnvConfig(sim=lane_sim), device="cpu"), 2, "lane path")
 
     # -- 3d. the planners -----------------------------------------------------------
+    stamp("planners")
     plan_sim = {"timestep": 0.02, "solver_iters": 8}     # bench.py's MPPI configuration
     mcfg = MPPIConfig(horizon=64, n_samples=256, sigma=0.3)
     penv = CursorEnv(EnvConfig(sim=SimConfig(**plan_sim)), device=dev)
@@ -755,6 +872,7 @@ def main() -> None:
         fail(f"CEM launch count {cem_launches} != {2 * ccfg.horizon}")
 
     # -- 3e. the torque-space controllers -------------------------------------------
+    stamp("torque-space controllers")
     ctrl_vecs, ctrl_launches = {}, {}
     for control_type in ("position_orientation", "joint_impedance"):
         cvec = ft.make_vec_env("IKEASawyer-v0", num_envs=512, seed=0, control_type=control_type)
@@ -790,6 +908,7 @@ def main() -> None:
         ctrl_launches[control_type] = got_arm
 
     # -- 4. times ---------------------------------------------------------------
+    stamp("cursor times")
     env = vec.env
     gen.manual_seed(3)
     state = env.reset_batch(MAIN_B, gen)
@@ -800,7 +919,7 @@ def main() -> None:
     def step_once(it=iter(range(10**9))):
         holder[0] = env.step_batch(holder[0], actions[next(it) % STEPS])[0]
 
-    step_ms = cuda_ms(step_once, STEPS)
+    (step_ms, step_host_ms), step_rounds = median_round(step_once, STEPS)
     steps_per_s = MAIN_B / (step_ms / 1e3)
     n = env.config.n_substeps
     parts = holder[0].parts
@@ -820,15 +939,46 @@ def main() -> None:
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     scale = min(1.0, watts / FULL_POWER_W)
-    print(f"[time] step_batch B={MAIN_B}: {step_ms:.3f} ms/step, {steps_per_s:.1f} env steps/s")
+    print(f"[time] step_batch B={MAIN_B}: {step_ms:.3f} ms/step, {steps_per_s:.1f} env steps/s (the "
+          f"median of three rounds of {STEPS} steps: {step_rounds} ms); the host took "
+          f"{step_host_ms:.3f} ms a step to enqueue it")
     print(f"[time] kernel n={n} B={MAIN_B}: {kernel_ms:.4f} ms/launch; plain version "
           f"{plain_ms:.3f} ms; kernel share of a step {kernel_ms / step_ms:.3f}")
     print(f"[time] bound: {ops:.4g} FP32 ops -> {t_ops:.4f} ms at {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s "
           f"({t_ops / scale:.4f} ms scaled to {watts:g} W); {nbytes} B -> {t_bytes:.5f} ms at "
           f"{PEAK_HBM_BYTES / 1e12:g} TB/s; kernel at {bound_ms / kernel_ms:.4f} of its bound")
     print("[time] library_ms: null (no single PyTorch call computes this function)")
+    clocks = phys.phase_clocks(parts, group, gscale, n)
+    floor_ms, resident, barriers, trip_us = latency_floor(phys, clocks, sm_count)
+    print(f"[time] kernel latency floor: {barriers} block barriers counted in a launch of {n} substeps "
+          f"({barriers / n:g} a substep) x "
+          f"{-(-MAIN_B // (resident * sm_count))} waves ({resident} blocks an SM x {sm_count} SMs) x "
+          f"{trip_us:.4f} us a bare barrier at that occupancy = {floor_ms:.4f} ms (bound "
+          f"{bound_ms:.4f} ms, kernel {kernel_ms:.4f} ms, before its redesign {PREV_KERNEL_MS} ms)")
+    shares, cycles = phase_shares(clocks, MEGA_PHASES, n)
+    print("[time] kernel phases: " + ", ".join(f"{k} {v:.3f}" for k, v in zip(MEGA_PHASES, shares))
+          + f" | {cycles:.0f} cycles a substep a block")
+    # the same with parts welded: two recipe steps preassembled
+    wenv = CursorEnv(EnvConfig(preassembled=(0, 1)), device=dev)
+    gen.manual_seed(3)
+    wstate = wenv.reset_batch(MAIN_B, gen)
+    for a in actions[:3]:
+        wstate, *_ = wenv.step_batch(wstate, a)
+    wparts = PartState(*(t.contiguous() for t in wstate.parts))
+    wgroup = wstate.group.contiguous()
+    wenv.physics.kernel_substeps(wparts, wgroup, gscale, n)  # warm-up
+    welded_ms = cuda_ms(lambda: wenv.physics.kernel_substeps(wparts, wgroup, gscale, n), 10)
+    wshares, wcycles = phase_shares(wenv.physics.phase_clocks(wparts, wgroup, gscale, n),
+                                    MEGA_PHASES, n)
+    n_groups = wgroup[0].unique().numel()
+    print(f"[time] kernel n={n} B={MAIN_B} welded (preassembled (0, 1), groups "
+          f"{wgroup[0].tolist()}, {n_groups} groups of {P} parts): {welded_ms:.4f} ms/launch "
+          f"beside {kernel_ms:.4f} ms with free parts")
+    print("[time] kernel phases, welded: " + ", ".join(f"{k} {v:.3f}" for k, v in zip(MEGA_PHASES, wshares))
+          + f" | {wcycles:.0f} cycles a substep a block")
 
     # -- 4b. arm times ----------------------------------------------------------
+    stamp("arm times")
     arm_step = {}
     for control_type, nb in ARM_RUNS:
         avec, acts = arm_vecs[control_type]
@@ -842,10 +992,11 @@ def main() -> None:
         def arm_step_once(it=iter(range(10**9)), aenv=aenv, acts=acts, aholder=aholder):
             aholder[0] = aenv.step_batch(aholder[0], acts[next(it) % STEPS])[0]
 
-        ms = cuda_ms(arm_step_once, 10)
-        arm_step[control_type] = (ms, nb / (ms / 1e3))
+        (ms, host_ms), arm_rounds = median_round(arm_step_once, 10, 3 if control_type == "impedance" else 1)
+        arm_step[control_type] = (ms, nb / (ms / 1e3), host_ms)
         print(f"[time] Sawyer {control_type} step_batch B={nb}: {ms:.3f} ms/step, "
-              f"{nb / (ms / 1e3):.1f} env steps/s")
+              f"{nb / (ms / 1e3):.1f} env steps/s (rounds of 10 steps: {arm_rounds} ms); the host "
+              f"took {host_ms:.3f} ms a step to enqueue it")
     avec, acts = arm_vecs["impedance"]
     aenv, aB = avec.env, ARM_RUNS[0][1]
     aph = aenv.physics
@@ -885,8 +1036,20 @@ def main() -> None:
           f"({a_t_ops / scale:.4f} ms scaled to {watts:g} W); {a_bytes} B -> {a_t_bytes:.5f} ms at "
           f"{PEAK_HBM_BYTES / 1e12:g} TB/s; kernel at {arm_bound_ms / arm_kernel_ms:.4f} of its bound")
     print("[time] arm library_ms: null (no single PyTorch call computes this function)")
+    arm_clocks = aph.phase_clocks(*aargs)
+    arm_floor_ms, arm_resident, arm_barriers, arm_trip_us = latency_floor(aph, arm_clocks, sm_count)
+    print(f"[time] arm kernel latency floor: {arm_barriers} block barriers counted in a launch of {an} "
+          f"substeps ({arm_barriers / an:g} a substep) x "
+          f"{-(-aB // (arm_resident * sm_count))} waves ({arm_resident} block(s) an SM x {sm_count} SMs) x "
+          f"{arm_trip_us:.4f} us a bare barrier at that occupancy = {arm_floor_ms:.4f} ms (bound "
+          f"{arm_bound_ms:.4f} ms, kernel {arm_kernel_ms:.4f} ms, before its redesign "
+          f"{PREV_ARM_KERNEL_MS} ms)")
+    arm_shares, arm_cycles = phase_shares(arm_clocks, ARM_PHASES, an)
+    print("[time] arm kernel phases: " + ", ".join(f"{k} {v:.3f}" for k, v in zip(ARM_PHASES, arm_shares))
+          + f" | {arm_cycles:.0f} cycles a substep a block")
 
     # -- 4c. lane solver, lane path, planner and controller times ------------------
+    stamp("lane, planner and controller times")
     gen.manual_seed(3)
     lstate = lenv.reset_batch(MAIN_B, gen)
     lstate = lenv.step_batch(lstate, actions[0])[0]  # warm-up
@@ -970,6 +1133,7 @@ def main() -> None:
           f"{512 / (osc_step_ms / 1e3):.1f} env steps/s; _controller_prepare (FK, mass matrix, three "
           f"SVD-clamped inverses) {osc_prepare_ms:.3f} ms of it")
 
+    stamp("done")
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "free_part_megakernel",
@@ -979,6 +1143,12 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": worst,
         "ms": kernel_ms,
+        "welded_ms": welded_ms,
+        "latency_floor_ms": floor_ms,
+        "barriers_per_launch": barriers,
+        "resident_blocks_per_sm": resident,
+        "phase_shares": dict(zip(MEGA_PHASES, shares)),
+        "phase_shares_welded": dict(zip(MEGA_PHASES, wshares)),
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -988,6 +1158,7 @@ def main() -> None:
             {"case": t, "max_abs_err": e, "plain_spread": sp} for t, e, sp in spread_cases
         ],
         "step_ms": step_ms,
+        "step_host_enqueue_ms": step_host_ms,
         "env_steps_per_s": steps_per_s,
         "launches_on_arm_paths": free_launches_arm,
         "launches_on_planner_paths": {"mppi": mppi_launches, "cem": cem_launches},
@@ -999,6 +1170,10 @@ def main() -> None:
         "launches": arm_launches["impedance"] + arm_launches["ik"],
         "max_abs_err": arm_worst,
         "ms": arm_kernel_ms,
+        "latency_floor_ms": arm_floor_ms,
+        "barriers_per_launch": arm_barriers,
+        "resident_blocks_per_sm": arm_resident,
+        "phase_shares": dict(zip(ARM_PHASES, arm_shares)),
         "plain_ms": arm_plain_ms,
         "bound_ms": arm_bound_ms,
         "bound_by": arm_bound_by,
@@ -1011,6 +1186,7 @@ def main() -> None:
             for t, e, m, s7, s6, over in arm_spread_cases
         ],
         "step_ms": {k: v[0] for k, v in arm_step.items()},
+        "step_host_enqueue_ms": {k: v[2] for k, v in arm_step.items()},
         "env_steps_per_s": {k: v[1] for k, v in arm_step.items()},
         "joint_dyn_matrices_ms": dyn_ms,
         "ik_prepare_ms": ik_ms,

@@ -4,8 +4,11 @@ Each ``csrc/*.cu`` source has a plain C interface. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``_build/``
 (listed in ``.gitignore``) at first use, and loaded with ``ctypes``. The
 library's name carries a hash of the source, of the headers beside it
-(``csrc/*.cuh``) and of the flags, so an edited source is rebuilt. The ``-Xptxas -v`` register and shared-memory report is
-kept beside the library (``.log``).
+(``csrc/*.cuh``) and of the flags, so an edited source is rebuilt. The
+``-Xptxas -v`` register and shared-memory report is kept beside the library
+(``.log``). ``defines`` are compile-time defines (``-DNAME``): a build with
+defines is a library of its own beside the plain one (the phase-clock
+builds of the two physics kernels, ``PHASE_CLOCKS``).
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -46,22 +49,30 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(source: Path) -> Path:
-    h = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+# the define of the physics kernels' phase-clock builds (physics_common.cuh)
+PHASE_CLOCKS = ("FT_PHASE_CLOCKS",)
+
+
+def _flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(source: Path, defines=()) -> Path:
+    h = hashlib.sha256(source.read_bytes() + " ".join(_flags(defines)).encode())
     for header in sorted(source.parent.glob("*.cuh")):
         h.update(header.read_bytes())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def start_build(source: Path):
+def start_build(source: Path, defines=()):
     """Start compiling ``source`` unless its library exists; returns the
     running ``subprocess.Popen`` (or None) so several builds can overlap."""
-    out = library_path(source)
+    out = library_path(source, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp), str(source)]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -81,13 +92,13 @@ def finish_build(proc) -> None:
     os.replace(tmp, out)
 
 
-def build_log(source: Path) -> str:
+def build_log(source: Path, defines=()) -> str:
     """The compiler's report for the built library of ``source``."""
-    log = library_path(source).with_suffix(".log")
+    log = library_path(source, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def load(source: Path) -> ctypes.CDLL:
-    """Build ``source`` if needed and load it."""
-    finish_build(start_build(source))
-    return ctypes.CDLL(str(library_path(source)))
+def load(source: Path, defines=()) -> ctypes.CDLL:
+    """Build ``source`` (with ``defines``) if needed and load it."""
+    finish_build(start_build(source, defines))
+    return ctypes.CDLL(str(library_path(source, defines)))

@@ -53,20 +53,27 @@ from .megakernel import (
     INTEGRATE,
     INV3,
     MAT3,
+    KIND_ROBOT1,
+    KIND_ROBOT2,
+    LANE_CONST_COLS,
     MAX_SMEM,
     PREP_LANE,
     QMAT,
     QMUL,
     QROT,
     SAT,
+    SLOT_TABLES,
     UPDATE_LANE,
     MegaPhysics,
+    check_inputs,
     lane_lists,
+    slot_tables,
 )
 from .state import PartState
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "arm_megakernel.cu"
 THREADS = 512
+SEGMENT = 32   # csrc/arm_megakernel.cu SEGW: a whole warp shares a part
 
 # order of the pointer, int and float arrays handed to arm_control_step
 # (the PtrIndex, IntIndex and FloatIndex enums of the .cu file)
@@ -74,13 +81,13 @@ PTR_NAMES = (
     "pos", "quat", "lin_vel", "ang_vel", "group", "gscale", "qpos", "qvel", "ctrl",
     "tau_extra", "G1", "G2",
     "pos_out", "quat_out", "lin_out", "ang_out", "qpos_out", "qvel_out", "touch_out",
-    "part_const", "lane_const", "lane_part", "part_off", "part_nfloor", "part_ent",
+    "part_const", *SLOT_TABLES,
     "body_f", "body_i", "jnt_f", "jnt_i", "rg_f", "rg_i", "rg_anc", "act_f", "act_i",
-    "grip_i", "grip_f", "rl_i", "rg_off", "rg_ent",
-    "scratch",
+    "grip_i", "grip_f", "rg_off", "rg_ent_slot",
+    "scratch", "clocks",
 )
 INT_NAMES = (
-    "B", "P", "Kf", "Kp", "Ke", "Kr", "L", "n", "iters", "NB", "NJ", "NA", "NRG",
+    "B", "P", "KS", "LPT", "NBS", "Kf", "Ke", "n", "iters", "NB", "NJ", "NA", "NRG",
     "NARM", "NGRIP", "couple", "threads", "smem",
 )
 FLOAT_NAMES = (
@@ -89,30 +96,37 @@ FLOAT_NAMES = (
 )
 ROBOT_TABLES = PTR_NAMES[PTR_NAMES.index("body_f") : PTR_NAMES.index("scratch")]
 
-_lib = None
+_libs = {}
 
 
-def library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library."""
-    global _lib
-    if _lib is None:
-        lib = _cuda.load(SOURCE)
+def library(defines=()) -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library; with
+    ``_cuda.PHASE_CLOCKS`` the phase-clock build of the same source."""
+    if defines not in _libs:
+        lib = _cuda.load(SOURCE, defines)
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.arm_control_step.argtypes = [vp, vp, vp, vp]
         lib.arm_control_step.restype = i
         lib.arm_error_string.argtypes = [i]
         lib.arm_error_string.restype = ctypes.c_char_p
-        for fn in ("arm_lane_floats", "arm_part_floats", "arm_lane_const_cols",
-                   "arm_num_ptrs", "arm_num_ints", "arm_num_floats"):
+        for fn in ("arm_lane_floats", "arm_lane_const_cols",
+                   "arm_segment_width", "arm_sum_columns",
+                   "arm_num_ptrs", "arm_num_ints", "arm_num_floats", "arm_num_phases"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i
-        lib.arm_robot_floats.argtypes = [i] * 6
-        lib.arm_robot_floats.restype = i
+        lib.arm_fixed_words.argtypes = [i] * 11
+        lib.arm_fixed_words.restype = i
+        lib.arm_resident_blocks.argtypes = [i] * 3
+        lib.arm_resident_blocks.restype = i
+        lib.arm_barrier_probe.argtypes = [i, i, i, i, vp]
+        lib.arm_barrier_probe.restype = i
         counts = (lib.arm_num_ptrs(), lib.arm_num_ints(), lib.arm_num_floats())
         if counts != (len(PTR_NAMES), len(INT_NAMES), len(FLOAT_NAMES)):
             raise RuntimeError(f"arm_megakernel.cu argument layout changed: {counts}")
-        _lib = lib
-    return _lib
+        if (lib.arm_lane_const_cols(), lib.arm_segment_width()) != (LANE_CONST_COLS, SEGMENT):
+            raise RuntimeError("arm_megakernel.cu slot layout changed")
+        _libs[defines] = lib
+    return _libs[defines]
 
 
 def _rot(q):
@@ -132,7 +146,7 @@ class ArmMegaPhysics:
     (robot, furniture) pair. ``tables`` are the physics tables with the
     robot contact tables (``engine.robot_contact_tables``) merged in."""
 
-    LANE_CONST_COLS = MegaPhysics.LANE_CONST_COLS
+    LANE_GEOM_COLS = MegaPhysics.LANE_GEOM_COLS
 
     def __init__(self, tables, robot, cfg_sim, device):
         # the free-part tables (and attach_betas, which sees the robot pairs)
@@ -207,7 +221,7 @@ class ArmMegaPhysics:
         self.lane_finger = np.array([finger_of_geom.get(int(g), -1) for g in lane_rg], np.int32)
         self.NT = 2 * self.n_arms * P
 
-        lc = np.zeros((self.K, self.LANE_CONST_COLS), np.float32)
+        lc = np.zeros((self.K, self.LANE_GEOM_COLS), np.float32)
         lc[: self.Kb] = free.lane_const
         lc[self.Kb : self.Kb + L, 0:3] = self.r1_corner
         lc[self.Kb : self.Kb + L, 3:6] = self.r1_rsize
@@ -219,7 +233,7 @@ class ArmMegaPhysics:
         lc[:, 21] = self.lane_beta
         self.lane_const = lc
         self.part_const = free.part_const
-        self.lane_part, self.part_ent, self.part_off, self.part_nfloor = lane_lists(
+        self.part_ent, self.part_off, self.part_nfloor = lane_lists(
             self.part_a, self.part_b, self.Kf, P
         )
 
@@ -274,18 +288,31 @@ class ArmMegaPhysics:
         ]
         self.grip_i = np.array([g[:3] for g in grip], i32).reshape(-1, 3)
         self.grip_f = np.array([g[3] for g in grip], f32)
-        self.rl_i = np.stack([self.lane_slot, self.lane_finger], axis=1).astype(i32)
         order = np.argsort(self.lane_slot, kind="stable")
         self.rg_ent = (self.Kb + order).astype(i32)
         self.rg_off = np.concatenate(
             [[0], np.cumsum(np.bincount(self.lane_slot, minlength=self.NRG))]
         ).astype(i32)
+        # the same tables in slot order, for the kernel: a robot lane's slot
+        # carries its hand-geom slot and its finger code
+        self.lane_kind = np.concatenate(
+            [free.lane_kind, np.full(L, KIND_ROBOT1), np.full(L, KIND_ROBOT2)]
+        )
+        self.slots = slot_tables(
+            self.part_a, self.part_b, self.lane_kind, lc,
+            np.concatenate([np.zeros(free.Kf + free.Kp, int), np.arange(free.Ke), self.lane_slot]),
+            np.concatenate([np.zeros(self.Kb, int), self.lane_finger]),
+            free.Kf, free.Ke, P, THREADS, SEGMENT,
+        )
+        self.rg_ent_slot = self.slots["slot_of_lane"][self.rg_ent].astype(i32)
         self._dev = {
             name: torch.as_tensor(getattr(self, name), device=self.device)
-            for name in (
-                "part_const", "lane_const", "lane_part", "part_off", "part_nfloor", "part_ent",
-            ) + ROBOT_TABLES
+            for name in ("part_const",) + ROBOT_TABLES
         }
+        self._dev.update(
+            (name, torch.as_tensor(self.slots[name], device=self.device).contiguous())
+            for name in SLOT_TABLES
+        )
 
         # ---- the plain version's tables ----
         dev = self.device
@@ -408,18 +435,65 @@ class ArmMegaPhysics:
         raise RuntimeError(f"no arm physics for device {parts.pos.device}")
 
     def lane_buffer(self):
-        """(floats per lane, shared bytes, lanes in shared memory?)."""
+        """(floats per lane, dynamic shared bytes a block, working set in
+        shared memory?)."""
         lib = library()
-        nf, pf = lib.arm_lane_floats(), lib.arm_part_floats()
-        robot = lib.arm_robot_floats(self.P, self.NB, self.NJ, self.NA, self.NRG, self.n_arms)
-        fixed = 4 * (pf * self.P + self.P + robot)
-        lane_bytes = 4 * nf * self.K
+        nf, ncol = lib.arm_lane_floats(), lib.arm_sum_columns()
+        fixed = 4 * lib.arm_fixed_words(
+            self.P, self.NB, self.NJ, self.NA, self.NRG, self.n_arms, self.Kf, self.Ke,
+            self.slots["KS"], int(self.slots["b_off"][-1]), THREADS,
+        )
+        lane_bytes = 4 * self._scratch_floats(nf, ncol)
         in_smem = fixed + lane_bytes <= self.smem_limit
         return nf, fixed + (lane_bytes if in_smem else 0), in_smem
+
+    # -- what the latency floor is worked out from ------------------------------
+
+    def resident_blocks(self) -> int:
+        """Blocks of the kernel an SM holds for this model and robot."""
+        _, smem, in_smem = self.lane_buffer()
+        n = library().arm_resident_blocks(int(not in_smem), THREADS, smem)
+        if n <= 0:
+            raise RuntimeError("the occupancy query of arm_megakernel.cu failed")
+        return n
+
+    def barrier_probe(self, blocks: int, n: int) -> None:
+        """Launch ``blocks`` blocks of the kernel's size and shared memory
+        that pass ``n`` bare block barriers: timed, a launch over ``n`` is a
+        barrier's round trip at that occupancy. Not counted in ``launches``."""
+        smem = self.lane_buffer()[1]
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = library().arm_barrier_probe(int(blocks), THREADS, smem, int(n),
+                                              ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError("barrier probe failed: " + library().arm_error_string(err).decode())
+
+    def _scratch_floats(self, nf: int, ncol: int) -> int:
+        """Floats of an env's b-side buffer and lane working set."""
+        return ncol * int(self.slots["b_off"][-1]) + nf * self.slots["KS"]
 
     def kernel_control_step(self, parts: PartState, group, gscale, qpos, qvel, ctrl,
                             tau_extra, G1, G2, n: int):
         """One launch of the CUDA kernel; raises on anything it cannot take."""
+        out = self._launch((), parts, group, gscale, qpos, qvel, ctrl, tau_extra, G1, G2, n)
+        self.launches += 1
+        return out[:4]
+
+    def phase_clocks(self, parts: PartState, group, gscale, qpos, qvel, ctrl, tau_extra,
+                     G1, G2, n: int):
+        """Clock cycles per phase of the substep loop, ``[B, phases]`` int64,
+        the last column the block barriers the loop passed: one launch of
+        the phase-clock build of the kernel (the same source with
+        ``-DFT_PHASE_CLOCKS``). A measuring aid: its results are not used
+        and it is not counted in ``launches``."""
+        return self._launch(_cuda.PHASE_CLOCKS, parts, group, gscale, qpos, qvel, ctrl,
+                            tau_extra, G1, G2, n)[4]
+
+    def _launch(self, defines, parts: PartState, group, gscale, qpos, qvel, ctrl,
+                tau_extra, G1, G2, n: int):
+        """Check the inputs, then launch the build of the kernel with
+        ``defines``: ``(parts, qpos, qvel, touch, phase clocks or None)``."""
         B, P = parts.pos.shape[:2]
         NJ, NA = self.NJ, self.NA
         dev = parts.pos.device
@@ -440,18 +514,13 @@ class ArmMegaPhysics:
         }
         if P != self.P:
             raise ValueError(f"model has {self.P} parts, state has {P}")
-        for name, (t, shape, dtype) in inputs.items():
-            if t.device != dev or t.device.type != "cuda":
-                raise ValueError(f"{name} must be a CUDA tensor on {dev}, got {t.device}")
-            if tuple(t.shape) != shape or t.dtype != dtype:
-                raise ValueError(f"{name}: want {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
+        check_inputs(inputs, dev)
         if dev != self.device:
             raise ValueError(f"tables live on {self.device}, state on {dev}")
-        lib = library()
-        if lib.arm_lane_const_cols() != self.LANE_CONST_COLS:
-            raise RuntimeError("arm_megakernel.cu lane-constant layout changed")
+        lib = library(defines)
+        clocks = None
+        if defines == _cuda.PHASE_CLOCKS:
+            clocks = torch.zeros((B, lib.arm_num_phases()), dtype=torch.int64, device=dev)
         nf, smem, in_smem = self.lane_buffer()
         out = PartState(
             pos=torch.empty_like(parts.pos),
@@ -461,16 +530,19 @@ class ArmMegaPhysics:
         )
         qpos_out, qvel_out = torch.empty_like(qpos), torch.empty_like(qvel)
         touch = torch.empty((B, self.NT), dtype=torch.uint8, device=dev)
-        scratch = None if in_smem else torch.empty((B, nf * self.K), dtype=f32, device=dev)
+        scratch = None if in_smem else torch.empty(
+            (B, self._scratch_floats(nf, lib.arm_sum_columns())), dtype=f32, device=dev
+        )
         tensors = {name: t for name, (t, _, _) in inputs.items()}
         tensors.update(
             pos_out=out.pos, quat_out=out.quat, lin_out=out.lin_vel, ang_out=out.ang_vel,
             qpos_out=qpos_out, qvel_out=qvel_out, touch_out=touch, scratch=scratch,
-            **self._dev,
+            clocks=clocks, **self._dev,
         )
         cfg = self.cfg
         ints = dict(
-            B=B, P=P, Kf=self.Kf, Kp=self.Kp, Ke=self.Ke, Kr=self.Kr, L=self.L, n=int(n),
+            B=B, P=P, KS=self.slots["KS"], LPT=self.slots["lpt"],
+            NBS=int(self.slots["b_off"][-1]), Kf=self.Kf, Ke=self.Ke, n=int(n),
             iters=int(cfg.solver_iters), NB=self.NB, NJ=NJ, NA=NA, NRG=self.NRG,
             NARM=self.n_arms, NGRIP=len(self.grip_f), couple=int(bool(cfg.robot_coupling)),
             threads=THREADS, smem=smem,
@@ -497,18 +569,20 @@ class ArmMegaPhysics:
             raise RuntimeError(
                 "arm megakernel launch failed: " + lib.arm_error_string(err).decode()
             )
-        self.launches += 1
-        return out, qpos_out, qvel_out, touch.reshape(B, 2 * self.n_arms, P) != 0
+        return out, qpos_out, qvel_out, touch.reshape(B, 2 * self.n_arms, P) != 0, clocks
 
     # -- work model (for the roofline bound) -----------------------------------
 
     def fp32_ops_per_env(self, n: int) -> int:
-        """FP32 operations one env's block performs in a launch of ``n``
-        substeps, counted from ``csrc/arm_megakernel.cu`` and the shared
-        ``physics_common.cuh`` (each add, multiply, min/max, compare, divide,
-        square root, sin, cos and tanh counts one; index arithmetic does
-        not). The count does not depend on the data: every lane runs every
-        phase whatever its mask."""
+        """FP32 operations of the *function* for one env in a launch of ``n``
+        substeps, as the plain version does it: per solver pass one impulse
+        application per (lane, side) entry of the per-part lists and one
+        lambda update per lane, and the robot's phases once a substep (each
+        add, multiply, min/max, compare, divide, square root, sin, cos and
+        tanh counts one; index arithmetic does not). This is the yardstick
+        of the roofline bound and does not follow the kernel's layout (see
+        ``MegaPhysics.fp32_ops_per_env``). The count does not depend on the
+        data: every lane runs every phase whatever its mask."""
         P, Kf, Kp, Ke, Kr, K = self.P, self.Kf, self.Kp, self.Ke, self.Kr, self.K
         NJ, NA, NB, NRG = self.NJ, self.NA, self.NB, self.NRG
         E = len(self.part_ent)

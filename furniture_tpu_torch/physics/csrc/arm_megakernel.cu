@@ -22,31 +22,47 @@
 //
 // What bounds it on the H100. State through HBM is about 1.3 KB per env per
 // launch for Sawyer (parts, joints, ctrl, G1, G2 in; parts, joints, touch
-// out): under 1 us of HBM bandwidth at B = 512. The work is FP32 arithmetic
-// over K = 1260 (Sawyer) to 1610 (Baxter) lanes x 13 solver sweeps x 50
-// substeps, plus ~40 block barriers per substep and a serial joint chain
-// (<= 37 bodies) per substep. So the bound is operations and latency, not
-// memory.
+// out): under 1 us of HBM bandwidth at B = 512. The function's work is FP32
+// arithmetic over K = 1260 (Sawyer) to 1610 (Baxter) lanes x 13 solver
+// passes x 50 substeps: 0.73 ms at the card's FP32 peak for Sawyer, n = 50,
+// B = 512. Neither binds: the lane working set (25 floats a slot, 1536
+// slots for Sawyer, 2048 for Baxter) fills most of an SM's shared memory and
+// 512 threads at 128 registers fill its register file, so one block is
+// resident per SM (Sawyer 173 KB, Baxter more: a second block fits neither
+// way; two blocks an SM would need 16 floats a slot and 64 registers), and
+// the launch is a chain of ~1400 barrier-to-barrier stretches per block
+// that nothing overlaps: 4 waves of blocks at B = 512. The bare barriers
+// are a floor of ~0.16 ms; the rest is the latency of each stretch with 16
+// warps an SM.
 //
-// What the design does about that bound. One thread block per env runs the
-// whole n-substep loop with everything resident in shared memory: part and
-// joint state, G1 and G2, the body poses, and the 27-float working set of
-// every lane (136 KB for Sawyer, 174 KB for Baxter: one block per SM, hence
-// 512 threads per block). A working set above the shared-memory limit goes to
-// a global scratch buffer through the same pointer. The chain is a loop over
-// constant tables (parent, local pose, joint type, axis, anchor), run by one
-// thread while the other warps compute the part frames. The TPU kernel's
-// per-lane loops over joints (surface velocity, p_c) are replaced by sums per
-// hand geom: each robot lane's velocity is v_g + w_g x (p - c_g), and p_c
-// comes from the force and torque each hand geom received, reduced one warp
-// per geom over a static lane list in a fixed order (no float atomics), then
-// projected on the joints that move the geom's body.
+// What the design does about that (layout and shared device code:
+// physics_common.cuh). Every warp works in the lane half of every pass: the
+// lanes are dealt to the 16 warps by a-side part (a thread makes LPT = 3
+// rounds for Sawyer, 4 for Baxter, over lanes kept field-major in shared
+// memory), each lane's impulse is computed once and summed by shuffles,
+// and one group pass per rigid group replaces the warp-per-part walk over
+// static lane lists. The SAT lanes, the longest straight-line code of the
+// narrow phase, are all taken by the last warp. The phases that are a few
+// dozen threads wide have no barrier of their own: the last warp runs the
+// joint update of the substep before, then this substep's chain (a
+// parallel composition over the kinematic tree by pointer jumping,
+// log2(depth) rounds, instead of one thread walking up to 37 bodies), the
+// joint axes and the hand-geom poses and velocities, side by side with the
+// group warps' held clamp, part frames and aggregates; the servo gates and
+// the actuator forces run beside the first group pass, the hand-geom force
+// sums beside the last. 28 barriers a substep (was ~40). A working set
+// above the shared-memory limit goes to a global scratch buffer through the
+// same pointer (a kernel instance of its own, so that the instance that
+// keeps it in shared memory addresses it as such).
 
 #include "physics_common.cuh"
 
 namespace {
 
 using namespace furniture;
+
+// all lanes of a warp share a part (a thread's LPT rounds too)
+constexpr int SEGW = 32;
 
 // joint and actuator kinds (robots/chain.py)
 constexpr int HINGE = 0;
@@ -58,15 +74,16 @@ enum PtrIndex {
   I_POS, I_QUAT, I_LIN, I_ANG, I_GROUP, I_GSCALE, I_QPOS, I_QVEL, I_CTRL, I_TAUX,
   I_G1, I_G2,
   O_POS, O_QUAT, O_LIN, O_ANG, O_QPOS, O_QVEL, O_TOUCH,
-  T_PART_CONST, T_LANE_CONST, T_LANE_PART, T_PART_OFF, T_PART_NFLOOR, T_PART_ENT,
+  T_PART_CONST, T_LANE_CONST, T_SLOT_I, T_SEG_OFF, T_B_OFF, T_FLOOR_OFF, T_FLOOR_SLOT,
+  T_SAT_CORNER,
   T_BODY_F, T_BODY_I, T_JNT_F, T_JNT_I, T_RG_F, T_RG_I, T_RG_ANC, T_ACT_F, T_ACT_I,
-  T_GRIP_I, T_GRIP_F, T_RL_I, T_RG_OFF, T_RG_ENT,
-  SCRATCH,
+  T_GRIP_I, T_GRIP_F, T_RG_OFF, T_RG_ENT,
+  SCRATCH, CLOCKS,
   NUM_PTRS
 };
 
 enum IntIndex {
-  N_B, N_P, N_KF, N_KP, N_KE, N_KR, N_L, N_SUBSTEPS, N_ITERS, N_NB, N_NJ, N_NA, N_NRG,
+  N_B, N_P, N_KS, N_LPT, N_NBS, N_KF, N_KE, N_SUBSTEPS, N_ITERS, N_NB, N_NJ, N_NA, N_NRG,
   N_NARM, N_NGRIP, N_COUPLE, N_THREADS, N_SMEM,
   NUM_INTS
 };
@@ -87,7 +104,6 @@ constexpr int RG_I = 2;      // body, arm whose finger it is (-1: none)
 constexpr int ACT_F = 5;     // gain, ctrl lo, ctrl hi, force lo, force hi
 constexpr int ACT_I = 2;     // joint, kind
 constexpr int GRIP_I = 3;    // arm, actuator row, joint
-constexpr int RL_I = 2;      // hand-geom slot, finger code (arm * 2 + side, -1: none)
 
 struct ArmParams {
   const float* pos;
@@ -110,11 +126,14 @@ struct ArmParams {
   float* qvel_out;
   uint8_t* touch_out;
   const float* part_const;
-  const float* lane_const;
-  const int* lane_part;
-  const int* part_off;
-  const int* part_nfloor;
-  const int* part_ent;
+  const float4* lane_const;  // [KS,LC]
+  const int4* slot_i;        // [KS,SI]; robot slots: hand-geom slot, finger code
+                             // (arm * 2 + side, -1: none)
+  const int* seg_off;
+  const int* b_off;
+  const int* floor_off;
+  const int* floor_slot;
+  const int* sat_corner;
   const float* body_f;
   const int* body_i;
   const float* jnt_f;
@@ -126,24 +145,28 @@ struct ArmParams {
   const int* act_i;
   const int* grip_i;
   const float* grip_f;    // [NGRIP] closing sign
-  const int* rl_i;        // [Kr,RL_I]
   const int* rg_off;      // [NRG+1] offsets into rg_ent
-  const int* rg_ent;      // [Kr] lanes of each hand geom
+  const int* rg_ent;      // [Kr] slots of each hand geom's lanes
   float* scratch;
-  int P, Kf, Kp, Ke, Kr, L, n, iters, NB, NJ, NA, NRG, NARM, NGRIP, couple;
+  long long* clocks;      // [B, NPHASE] or null (FT_PHASE_CLOCKS builds)
+  int P, KS, LPT, NBS, Kf, Ke, n, iters, NB, NJ, NA, NRG, NARM, NGRIP, couple;
   float dt, dtg, slop, relax, maxv, squeeze, half_squeeze, press_vel, pc_cap;
   float held_vel, held_angvel;
 };
 
-// The robot's shared-memory block, in floats, after the part fields and the
-// group labels. The wrapper sizes the launch with the same function.
+// The robot's shared-memory block, in floats, after the part fields, the
+// group labels and the partial sums. The wrapper sizes the launch with the
+// same function.
 struct RobotLayout {
-  int bpos, bquat, axis, anchor, qp, qv, qv_old, rhs, tau, ctrl, ctrl_eff, g1, g2;
-  int rgp, rgq, rgv, rgw, rgpen, rgF, rgT, deepf, touch, pin, total;
+  int bpos, bquat, tpos, tquat, anc, axis, anchor, qp, qv, qv_old, rhs, tau, ctrl, ctrl_eff;
+  int g1, g2, rgp, rgq, rgv, rgw, rgpen, rgF, rgT, deepf, touch, pin, total;
   __host__ __device__ RobotLayout(int P, int NB, int NJ, int NA, int NRG, int NARM) {
     int o = 0;
     bpos = o; o += 3 * NB;
     bquat = o; o += 4 * NB;
+    tpos = o; o += 3 * NB;      // second buffer of the chain's composition
+    tquat = o; o += 4 * NB;
+    anc = o; o += 2 * NB;       // ints: the ancestor each body is relative to
     axis = o; o += 3 * NJ;
     anchor = o; o += 3 * NJ;
     qp = o; o += NJ;
@@ -165,7 +188,7 @@ struct RobotLayout {
     deepf = o; o += NARM;
     touch = o; o += 2 * NARM * P;
     pin = o; o += P;
-    total = o;
+    total = align4(o);
   }
 };
 
@@ -182,20 +205,291 @@ __device__ __forceinline__ void joint_phi(const float* axis, const float* anchor
   }
 }
 
+// The robot's pointers into shared memory.
+struct Robot {
+  float *bpos, *bquat, *tpos, *tquat, *axis_w, *anchor_w, *qp, *qv, *qv_old, *rhs, *tau;
+  float *ctrl, *ctrl_eff, *g1, *g2, *rgp, *rgq, *rgv, *rgw, *rgpen, *rgF, *rgT;
+  float *arm_deepf, *touch, *pin;
+  int* anc;
+};
+
+// Forward kinematics, one warp: every body's pose relative to its parent
+// (joint motion included), then pointer jumping: each round composes a
+// body's transform with that of the ancestor it is relative to and moves on
+// to that ancestor's ancestor, so a chain of depth d is done in log2(d)
+// rounds. Then the joint axes and anchors, the hand-geom poses and the
+// hand-geom velocities (v at the center, omega).
+__device__ __forceinline__ void robot_kinematics(const ArmParams& p, const Robot& r, int lane) {
+  const int NB = p.NB, NJ = p.NJ, NRG = p.NRG;
+  for (int i = lane; i < NB; i += 32) {
+    const float* bf = p.body_f + i * BODY_F;
+    const int jn = p.body_i[i * BODY_I + 1];
+    const int jt = p.body_i[i * BODY_I + 2];
+    float lp[3] = {bf[0], bf[1], bf[2]}, lq[4] = {bf[3], bf[4], bf[5], bf[6]};
+    if (jn >= 0 && jt == HINGE) {
+      const float half = r.qp[jn] * 0.5f;
+      const float sh = sinf(half);
+      float qr[4] = {cosf(half), sh * bf[7], sh * bf[8], sh * bf[9]};
+      float ra[3], d[3], rd[3], wq[4];
+      qrot(qr, bf + 10, ra);
+      for (int k = 0; k < 3; ++k) d[k] = bf[10 + k] - ra[k];
+      qrot(bf + 3, d, rd);
+      for (int k = 0; k < 3; ++k) lp[k] += rd[k];
+      qmul(bf + 3, qr, wq);
+      for (int k = 0; k < 4; ++k) lq[k] = wq[k];
+    } else if (jn >= 0) {
+      float rd[3];
+      qrot(bf + 3, bf + 7, rd);
+      for (int k = 0; k < 3; ++k) lp[k] += rd[k] * r.qp[jn];
+    }
+    for (int k = 0; k < 3; ++k) r.bpos[3 * i + k] = lp[k];
+    for (int k = 0; k < 4; ++k) r.bquat[4 * i + k] = lq[k];
+    r.anc[i] = p.body_i[i * BODY_I];
+  }
+  __syncwarp();
+  float *sp_ = r.bpos, *sq_ = r.bquat, *dp_ = r.tpos, *dq_ = r.tquat;
+  int *sa = r.anc, *da = r.anc + NB;
+  bool in_b = true;   // the current transforms are in bpos/bquat
+  for (;;) {
+    bool open = false;
+    for (int i = lane; i < NB; i += 32) {
+      const int a = sa[i];
+      if (a >= 0) {
+        float rp[3];
+        qrot(sq_ + 4 * a, sp_ + 3 * i, rp);
+        for (int k = 0; k < 3; ++k) dp_[3 * i + k] = sp_[3 * a + k] + rp[k];
+        qmul(sq_ + 4 * a, sq_ + 4 * i, dq_ + 4 * i);
+        da[i] = sa[a];
+        open = open || (sa[a] >= 0);
+      } else {
+        for (int k = 0; k < 3; ++k) dp_[3 * i + k] = sp_[3 * i + k];
+        for (int k = 0; k < 4; ++k) dq_[4 * i + k] = sq_[4 * i + k];
+        da[i] = -1;
+      }
+    }
+    __syncwarp();
+    float* t = sp_; sp_ = dp_; dp_ = t;
+    t = sq_; sq_ = dq_; dq_ = t;
+    int* ti = sa; sa = da; da = ti;
+    in_b = !in_b;
+    if (!__any_sync(0xffffffffu, open)) break;
+  }
+  if (!in_b) {
+    for (int i = lane; i < NB; i += 32) {
+      for (int k = 0; k < 3; ++k) r.bpos[3 * i + k] = r.tpos[3 * i + k];
+      for (int k = 0; k < 4; ++k) r.bquat[4 * i + k] = r.tquat[4 * i + k];
+    }
+    __syncwarp();
+  }
+  // joint axes and anchors, hand-geom poses
+  for (int j = lane; j < NJ; j += 32) {
+    const float* jf = p.jnt_f + j * JNT_F;
+    const int body = p.jnt_i[j * JNT_I];
+    float a[3];
+    qrot(r.bquat + 4 * body, jf, r.axis_w + 3 * j);
+    qrot(r.bquat + 4 * body, jf + 3, a);
+    for (int d = 0; d < 3; ++d) r.anchor_w[3 * j + d] = r.bpos[3 * body + d] + a[d];
+  }
+  for (int g = lane; g < NRG; g += 32) {
+    const float* gf = p.rg_f + g * RG_F;
+    const int body = p.rg_i[g * RG_I];
+    float a[3];
+    qrot(r.bquat + 4 * body, gf, a);
+    for (int d = 0; d < 3; ++d) r.rgp[3 * g + d] = r.bpos[3 * body + d] + a[d];
+    qmul(r.bquat + 4 * body, gf + 3, r.rgq + 4 * g);
+  }
+  __syncwarp();
+  // velocity of each hand geom: v at its center, omega
+  for (int g = lane; g < NRG; g += 32) {
+    float v[3] = {0.f, 0.f, 0.f}, w[3] = {0.f, 0.f, 0.f};
+    for (int j = 0; j < NJ; ++j) {
+      if (p.rg_anc[g * NJ + j] == 0.f) continue;
+      const bool hinge = p.jnt_i[j * JNT_I + 1] == HINGE;
+      float phi[3];
+      joint_phi(r.axis_w + 3 * j, r.anchor_w + 3 * j, hinge, r.rgp + 3 * g, phi);
+      for (int d = 0; d < 3; ++d) {
+        v[d] += r.qv[j] * phi[d];
+        if (hinge) w[d] += r.qv[j] * r.axis_w[3 * j + d];
+      }
+    }
+    for (int d = 0; d < 3; ++d) {
+      r.rgv[3 * g + d] = v[d];
+      r.rgw[3 * g + d] = w[d];
+    }
+  }
+}
+
+// The squeeze servo of each arm from the hand geoms' deepest engaged
+// penetration, then the actuator forces; one warp.
+__device__ __forceinline__ void servo_and_actuators(const ArmParams& p, const Robot& r, int b,
+                                                    int lane) {
+  for (int a = lane; a < p.NARM; a += 32) {
+    float pen = -1e9f;
+    for (int g = 0; g < p.NRG; ++g)
+      if (p.rg_i[g * RG_I + 1] == a) pen = fmaxf(pen, r.rgpen[g]);
+    const bool deep = pen > p.squeeze;
+    bool closing = false;
+    for (int i = 0; i < p.NGRIP; ++i) {
+      if (p.grip_i[i * GRIP_I] != a) continue;
+      const int row = p.grip_i[i * GRIP_I + 1];
+      const int gj = p.grip_i[i * GRIP_I + 2];
+      const float cs = p.grip_f[i];
+      closing = closing || (cs * (r.ctrl[row] - r.qp[gj]) > 0.f);
+      const float held = cs > 0.f ? fminf(r.ctrl[row], r.qp[gj]) : fmaxf(r.ctrl[row], r.qp[gj]);
+      r.ctrl_eff[row] = deep ? held : r.ctrl[row];
+    }
+    r.arm_deepf[a] = (closing && (pen > p.half_squeeze)) ? 1.f : 0.f;
+  }
+  __syncwarp();
+  for (int j = lane; j < p.NJ; j += 32) {
+    float t = 0.f;
+    for (int i = 0; i < p.NA; ++i) {
+      if (p.act_i[i * ACT_I] != j) continue;
+      const float* af = p.act_f + i * ACT_F;
+      const int kind = p.act_i[i * ACT_I + 1];
+      const float cc = fminf(fmaxf(r.ctrl_eff[i], af[1]), af[2]);
+      float f;
+      if (kind == VELOCITY) {
+        f = af[0] * cc;
+      } else if (kind == POSITION) {
+        f = af[0] * (cc - r.qp[j]);
+      } else {
+        f = fminf(fmaxf(af[0] * cc, af[3]), af[4]);
+      }
+      t += f;
+    }
+    r.tau[j] = t + p.taux[(size_t)b * p.NJ + j];
+  }
+}
+
+// The contact reaction on the joints p_c = J^T(-lambda) from the force and
+// torque each hand geom received, and the joint update with G1, G2, the
+// velocity and position limits; one warp.
+__device__ __forceinline__ void joint_update(const ArmParams& p, const Robot& r, int lane) {
+  const int NJ = p.NJ;
+  for (int j = lane; j < NJ; j += 32) {
+    float pc = 0.f;
+    if (p.couple) {
+      const bool hinge = p.jnt_i[j * JNT_I + 1] == HINGE;
+      const float* ax = r.axis_w + 3 * j;
+      for (int g = 0; g < p.NRG; ++g) {
+        if (p.rg_anc[g * NJ + j] == 0.f) continue;
+        if (hinge) {
+          float d[3] = {r.rgp[3 * g] - r.anchor_w[3 * j], r.rgp[3 * g + 1] - r.anchor_w[3 * j + 1],
+                        r.rgp[3 * g + 2] - r.anchor_w[3 * j + 2]};
+          float dxF[3];
+          cross3(d, r.rgF + 3 * g, dxF);
+          pc -= ax[0] * (r.rgT[3 * g] + dxF[0]) + ax[1] * (r.rgT[3 * g + 1] + dxF[1]) +
+                ax[2] * (r.rgT[3 * g + 2] + dxF[2]);
+        } else {
+          pc -= dot3(ax, r.rgF + 3 * g);
+        }
+      }
+      pc = fminf(fmaxf(pc, -p.pc_cap), p.pc_cap);
+    }
+    const float* jf = p.jnt_f + j * JNT_F;
+    r.rhs[j] = r.tau[j] - jf[6] * tanhf(r.qv[j] / 0.01f) + pc / p.dt;
+    r.qv_old[j] = r.qv[j];
+  }
+  __syncwarp();
+  for (int j = lane; j < NJ; j += 32) {
+    float a1 = 0.f, a2 = 0.f;
+    for (int m = 0; m < NJ; ++m) {
+      a1 += r.g1[j * NJ + m] * r.qv_old[m];
+      a2 += r.g2[j * NJ + m] * r.rhs[m];
+    }
+    const float* jf = p.jnt_f + j * JNT_F;
+    float v = a1 + a2;
+    v = fminf(fmaxf(v, -jf[7]), jf[7]);
+    const float q_new = r.qp[j] + p.dt * v;
+    const float q_cl = fminf(fmaxf(q_new, jf[8]), jf[9]);
+    if (q_cl != q_new) v = 0.f;
+    r.qp[j] = q_cl;
+    r.qv[j] = v;
+  }
+  __syncwarp();
+}
+
+// The group warps' end of a substep: the optional held-velocity clamp on
+// groups with a pinched part, then the touch flags are cleared for the next
+// substep.
+__device__ __forceinline__ void held_clamp(const Block& c, const ArmParams& p, const Robot& r,
+                                           bool clear_touch) {
+  const int P = c.P;
+#pragma unroll 1
+  for (int g = c.warp; g < c.ngroups; g += c.nwarps) {
+    const int m0 = c.gl_off[g], m1 = c.gl_off[g + 1];
+    if (p.held_vel > 0.f) {
+      bool pinned = false;
+      for (int m = m0 + c.lane; m < m1; m += 32) {
+        const int q = c.gl_mem[m];
+        for (int a = 0; a < p.NARM; ++a)
+          if (r.touch[(2 * a) * P + q] > 0.f && r.touch[(2 * a + 1) * P + q] > 0.f &&
+              r.arm_deepf[a] > 0.f)
+            pinned = true;
+      }
+      if (__any_sync(0xffffffffu, pinned)) {
+        for (int m = m0 + c.lane; m < m1; m += 32) {
+          const int q = c.gl_mem[m];
+          float lv[3] = {SP(S_LIN, q), SP(S_LIN + 1, q), SP(S_LIN + 2, q)};
+          float av[3] = {SP(S_ANG, q), SP(S_ANG + 1, q), SP(S_ANG + 2, q)};
+          const float sl = fminf(1.f, p.held_vel / fmaxf(sqrtf(dot3(lv, lv)), 1e-9f));
+          const float sa = fminf(1.f, p.held_angvel / fmaxf(sqrtf(dot3(av, av)), 1e-9f));
+          for (int d = 0; d < 3; ++d) {
+            SP(S_LIN + d, q) = lv[d] * sl;
+            SP(S_ANG + d, q) = av[d] * sa;
+          }
+        }
+      }
+    }
+    if (clear_touch) {
+      for (int m = m0 + c.lane; m < m1; m += 32) {
+        const int q = c.gl_mem[m];
+        for (int f = 0; f < 2 * p.NARM; ++f) r.touch[f * P + q] = 0.f;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// What the arm kernel does beside the first solver pass: after its lane
+// half, the deepest engaged penetration of each hand geom (a warp a geom);
+// beside its group half, the servo gates and the actuator forces (the robot
+// warp).
+struct ArmHooks {
+  const Block& c;
+  const ArmParams& p;
+  const Robot& r;
+  int b, robot_warp;
+  __device__ __forceinline__ void after_first_lane() const {
+#pragma unroll 1
+    for (int g = c.warp; g < p.NRG; g += c.nwarps) {
+      float pen = -1e9f;
+      for (int e = p.rg_off[g] + c.lane; e < p.rg_off[g + 1]; e += 32) {
+        const int k = p.rg_ent[e];
+        if (LN(F_MASK, k) > 0.f) pen = fmaxf(pen, LN(F_DEPTH, k));
+      }
+      pen = warp_max(pen);
+      if (c.lane == 0) r.rgpen[g] = pen;
+    }
+  }
+  __device__ __forceinline__ void beside_first_group() const {
+    if (c.warp == robot_warp) servo_and_actuators(p, r, b, c.lane);
+  }
+};
+
+template <bool SCRATCH>
 __global__ void __launch_bounds__(512)
 arm_control_step_kernel(ArmParams p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   const int P = p.P, NB = p.NB, NJ = p.NJ, NA = p.NA, NRG = p.NRG, NARM = p.NARM;
-  const int Kb = p.Kf + p.Kp + p.Ke;
-  const int K = Kb + p.Kr;
   const int NT = 2 * NARM * P;
   Block c;
   c.P = P;
-  c.Kf = p.Kf;
-  c.Kp = p.Kp;
-  c.Ke = p.Ke;
-  c.K = K;
+  c.KS = p.KS;
+  c.LPT = p.LPT;
+  c.NBS = p.NBS;
   c.iters = p.iters;
   c.dt = p.dt;
   c.dtg = p.dtg;
@@ -207,176 +501,137 @@ arm_control_step_kernel(ArmParams p) {
   c.warp = c.tid >> 5;
   c.lane = c.tid & 31;
   c.nwarps = c.nt >> 5;
+  c.NSEG = c.nt / SEGW;
   c.sp = smem;
   c.grp = reinterpret_cast<int*>(c.sp + PF * P);
-  float* rs = reinterpret_cast<float*>(c.grp + P);
+  c.part = reinterpret_cast<float*>(c.grp + group_words(P, c.NSEG, c.NBS));
+  float* rs = c.part + NCOL * c.NSEG;
   const RobotLayout ro(P, NB, NJ, NA, NRG, NARM);
-  c.lanes = p.scratch ? p.scratch + (size_t)b * NF_ARM * K : rs + ro.total;
+  int* tables = reinterpret_cast<int*>(rs + ro.total);
+  const TableLayout tl(P, p.Kf, p.Ke, c.KS);
+  c.bbuf = SCRATCH ? p.scratch + (size_t)b * (NCOL * c.NBS + NF_ARM * c.KS)
+                   : reinterpret_cast<float*>(tables + tl.total);
+  c.lanes = c.bbuf + NCOL * c.NBS;
   c.lane_const = p.lane_const;
-  c.lane_part = p.lane_part;
-  c.part_off = p.part_off;
-  c.part_nfloor = p.part_nfloor;
-  c.part_ent = p.part_ent;
+  c.slot_i = p.slot_i;
   const int tid = c.tid, nt = c.nt;
-  const float dt = p.dt, slop = p.slop;
+  const float slop = p.slop;
+  // the warp that runs the robot's narrow phases (kinematics, servo, joints)
+  const int robot_warp = c.nwarps - 1;
 
-  float* bpos = rs + ro.bpos;
-  float* bquat = rs + ro.bquat;
-  float* axis_w = rs + ro.axis;
-  float* anchor_w = rs + ro.anchor;
-  float* qp = rs + ro.qp;
-  float* qv = rs + ro.qv;
-  float* qv_old = rs + ro.qv_old;
-  float* rhs = rs + ro.rhs;
-  float* tau = rs + ro.tau;
-  float* ctrl = rs + ro.ctrl;
-  float* ctrl_eff = rs + ro.ctrl_eff;
-  float* g1 = rs + ro.g1;
-  float* g2 = rs + ro.g2;
-  float* rgp = rs + ro.rgp;
-  float* rgq = rs + ro.rgq;
-  float* rgv = rs + ro.rgv;
-  float* rgw = rs + ro.rgw;
-  float* rgpen = rs + ro.rgpen;
-  float* rgF = rs + ro.rgF;
-  float* rgT = rs + ro.rgT;
-  float* arm_deepf = rs + ro.deepf;
-  float* touch = rs + ro.touch;
-  float* pin = rs + ro.pin;
+  Robot r;
+  r.bpos = rs + ro.bpos;
+  r.bquat = rs + ro.bquat;
+  r.tpos = rs + ro.tpos;
+  r.tquat = rs + ro.tquat;
+  r.anc = reinterpret_cast<int*>(rs + ro.anc);
+  r.axis_w = rs + ro.axis;
+  r.anchor_w = rs + ro.anchor;
+  r.qp = rs + ro.qp;
+  r.qv = rs + ro.qv;
+  r.qv_old = rs + ro.qv_old;
+  r.rhs = rs + ro.rhs;
+  r.tau = rs + ro.tau;
+  r.ctrl = rs + ro.ctrl;
+  r.ctrl_eff = rs + ro.ctrl_eff;
+  r.g1 = rs + ro.g1;
+  r.g2 = rs + ro.g2;
+  r.rgp = rs + ro.rgp;
+  r.rgq = rs + ro.rgq;
+  r.rgv = rs + ro.rgv;
+  r.rgw = rs + ro.rgw;
+  r.rgpen = rs + ro.rgpen;
+  r.rgF = rs + ro.rgF;
+  r.rgT = rs + ro.rgT;
+  r.arm_deepf = rs + ro.deepf;
+  r.touch = rs + ro.touch;
+  r.pin = rs + ro.pin;
 
+  stage_tables(c, tables, tl, p.seg_off, p.b_off, p.floor_off, p.floor_slot, p.sat_corner,
+               p.Kf, p.Ke, true);
   load_parts(c, b, p.pos, p.quat, p.lin, p.ang, p.group, p.gscale, p.part_const);
   for (int j = tid; j < NJ; j += nt) {
-    qp[j] = p.qpos[(size_t)b * NJ + j];
-    qv[j] = p.qvel[(size_t)b * NJ + j];
+    r.qp[j] = p.qpos[(size_t)b * NJ + j];
+    r.qv[j] = p.qvel[(size_t)b * NJ + j];
   }
   for (int i = tid; i < NA; i += nt) {
-    ctrl[i] = p.ctrl[(size_t)b * NA + i];
-    ctrl_eff[i] = ctrl[i];
+    r.ctrl[i] = p.ctrl[(size_t)b * NA + i];
+    r.ctrl_eff[i] = r.ctrl[i];
   }
   for (int i = tid; i < NJ * NJ; i += nt) {
-    g1[i] = p.G1[(size_t)b * NJ * NJ + i];
-    g2[i] = p.G2[(size_t)b * NJ * NJ + i];
+    r.g1[i] = p.G1[(size_t)b * NJ * NJ + i];
+    r.g2[i] = p.G2[(size_t)b * NJ * NJ + i];
   }
-  for (int i = tid; i < NT; i += nt) touch[i] = 0.f;
+  for (int i = tid; i < NT; i += nt) r.touch[i] = 0.f;
+  LaneRegs Lz;
+  clear_lane(Lz);
+  for (int rr = 0; rr < c.LPT; ++rr) store_lambda(c, thread_slot(c, rr), Lz);
+  const SlotInfo no_slot = {0, 0, 0};
+  const ArmPress press = {r.arm_deepf, p.press_vel};
+  const ArmHooks hooks = {c, p, r, b, robot_warp};
   __syncthreads();
+  build_group_lists(c, c.grp);
+  // phases: 0 joint update, chain and hand geoms beside the held clamp, the
+  // part frames and aggregates, 1 narrow phase+prep, 2 first pass (gates,
+  // counts, warm start) with the servo gates and actuator forces, 3 group
+  // half of the passes, 4 lane half, 5 integration+floor+hand-geom forces
+  PhaseClock clk;
+  clk.start();
 
-  for (int s = 0; s < p.n; ++s) {
-    // ---- A. forward kinematics (one thread walks the chain) beside the
-    // part frames; touch flags cleared ----
-    if (tid == nt - 1) {
-      for (int i = 0; i < NB; ++i) {
-        const float* bf = p.body_f + i * BODY_F;
-        const int par = p.body_i[i * BODY_I];
-        const int jn = p.body_i[i * BODY_I + 1];
-        const int jt = p.body_i[i * BODY_I + 2];
-        float pre_pos[3], pre_quat[4];
-        if (par < 0) {
-          for (int d = 0; d < 3; ++d) pre_pos[d] = bf[d];
-          for (int d = 0; d < 4; ++d) pre_quat[d] = bf[3 + d];
-        } else {
-          float r[3];
-          qrot(bquat + 4 * par, bf, r);
-          for (int d = 0; d < 3; ++d) pre_pos[d] = bpos[3 * par + d] + r[d];
-          qmul(bquat + 4 * par, bf + 3, pre_quat);
-        }
-        float* wpos = bpos + 3 * i;
-        float* wquat = bquat + 4 * i;
-        if (jn < 0) {
-          for (int d = 0; d < 3; ++d) wpos[d] = pre_pos[d];
-          for (int d = 0; d < 4; ++d) wquat[d] = pre_quat[d];
-        } else if (jt == HINGE) {
-          const float half = qp[jn] * 0.5f;
-          const float sh = sinf(half);
-          float qr[4] = {cosf(half), sh * bf[7], sh * bf[8], sh * bf[9]}, wq[4];
-          qmul(pre_quat, qr, wq);
-          float r0[3], r1[3];
-          qrot(pre_quat, bf + 10, r0);
-          qrot(wq, bf + 10, r1);
-          for (int d = 0; d < 3; ++d) wpos[d] = pre_pos[d] + r0[d] - r1[d];
-          for (int d = 0; d < 4; ++d) wquat[d] = wq[d];
-        } else {
-          float r[3];
-          qrot(pre_quat, bf + 7, r);
-          for (int d = 0; d < 3; ++d) wpos[d] = pre_pos[d] + r[d] * qp[jn];
-          for (int d = 0; d < 4; ++d) wquat[d] = pre_quat[d];
-        }
-      }
+#pragma unroll 1
+  for (int s = 0;; ++s) {
+    // ---- the robot warp: contact reaction and joint update of the substep
+    // before, then this substep's kinematics; the group warps: held clamp,
+    // then this substep's frames, aggregates and gravity ----
+    const bool more = s < p.n;
+    if (c.warp == robot_warp) {
+      if (s > 0) joint_update(p, r, c.lane);
+      if (more) robot_kinematics(p, r, c.lane);
     }
-    part_frames(c);
-    for (int i = tid; i < NT; i += nt) touch[i] = 0.f;
-    __syncthreads();
+    if (s > 0) held_clamp(c, p, r, more);
+    if (more) group_head(c);
+    clk.sync();
+    clk.mark(0);
+    if (!more) break;
 
-    // ---- B. joint axes and anchors, hand-geom poses, group aggregates ----
-    for (int j = tid; j < NJ; j += nt) {
-      const float* jf = p.jnt_f + j * JNT_F;
-      const int body = p.jnt_i[j * JNT_I];
-      float r[3];
-      qrot(bquat + 4 * body, jf, axis_w + 3 * j);
-      qrot(bquat + 4 * body, jf + 3, r);
-      for (int d = 0; d < 3; ++d) anchor_w[3 * j + d] = bpos[3 * body + d] + r[d];
-    }
-    for (int g = tid; g < NRG; g += nt) {
-      const float* gf = p.rg_f + g * RG_F;
-      const int body = p.rg_i[g * RG_I];
-      float r[3];
-      qrot(bquat + 4 * body, gf, r);
-      for (int d = 0; d < 3; ++d) rgp[3 * g + d] = bpos[3 * body + d] + r[d];
-      qmul(bquat + 4 * body, gf + 3, rgq + 4 * g);
-    }
-    group_aggregates(c);
-    __syncthreads();
-
-    // ---- C. velocity of each hand geom: v at its center, omega ----
-    for (int g = tid; g < NRG; g += nt) {
-      float v[3] = {0.f, 0.f, 0.f}, w[3] = {0.f, 0.f, 0.f};
-      for (int j = 0; j < NJ; ++j) {
-        if (p.rg_anc[g * NJ + j] == 0.f) continue;
-        const bool hinge = p.jnt_i[j * JNT_I + 1] == HINGE;
-        float phi[3];
-        joint_phi(axis_w + 3 * j, anchor_w + 3 * j, hinge, rgp + 3 * g, phi);
-        for (int d = 0; d < 3; ++d) {
-          v[d] += qv[j] * phi[d];
-          if (hinge) w[d] += qv[j] * axis_w[3 * j + d];
-        }
-      }
-      for (int d = 0; d < 3; ++d) {
-        rgv[3 * g + d] = v[d];
-        rgw[3 * g + d] = w[d];
-      }
-    }
-    __syncthreads();
-
-    // ---- D. narrow phase and solver prep, every lane ----
-    for (int k = tid; k < K; k += nt) {
-      float point[3], nrm[3], depth;
+    // ---- narrow phase and solver prep, every lane (the SAT lanes in one
+    // warp); touch flags ----
+#pragma unroll 1
+    for (int rr = 0; rr < c.LPT; ++rr) {
+      const int k = thread_slot(c, rr);
+      const SlotInfo si = load_slot(c, k);
+      const int kind = si.kind();
+      if (kind == KIND_PAD || kind == KIND_SAT) continue;
+      LaneRegs L;
+      float lc[LC], point[3], nrm[3], depth;
       bool fm;
-      if (k < Kb) {
-        base_lane_contact(c, k, point, nrm, &depth, &fm);
-        lane_prep(c, k, point, nrm, depth, fm);
+      load_lane_const(c, k, lc);
+      const int pa = si.pa();
+      if (kind < KIND_ROBOT1) {
+        corner_lane_contact(c, kind, pa, si.pb(), lc, point, nrm, &depth, &fm);
+        lane_prep(c, pa, si.pb(), point, nrm, depth, fm, lc, L);
+        store_lane_prep(c, k, L);
         continue;
       }
-      const int r = k - Kb;
-      const int pa = p.lane_part[2 * k];
-      const int g = p.rl_i[r * RL_I];
-      const int finger = p.rl_i[r * RL_I + 1];
-      const float* lc = p.lane_const + (size_t)k * LC;
+      const int g = si.aux0;
+      const int finger = si.aux1;
       float qa[4] = {SP(S_QUAT, pa), SP(S_QUAT + 1, pa), SP(S_QUAT + 2, pa), SP(S_QUAT + 3, pa)};
       float xa[3] = {SP(S_POS, pa), SP(S_POS + 1, pa), SP(S_POS + 2, pa)};
       bool inside;
-      if (r < p.L) {
-        // side 1: a sample point of the part geom in the robot box; the
-        // normal pushes the part out of the robot box
+      if (kind == KIND_ROBOT1) {
+        // a sample point of the part geom in the robot box; the normal
+        // pushes the part out of the robot box
         float rc[3];
         qrot(qa, lc, rc);
         for (int d = 0; d < 3; ++d) point[d] = xa[d] + rc[d];
-        point_in_box(point, rgp + 3 * g, rgq + 4 * g, lc + 3, slop, &depth, nrm, &inside);
+        point_in_box(point, r.rgp + 3 * g, r.rgq + 4 * g, lc + 3, slop, &depth, nrm, &inside);
       } else {
-        // side 2: a sample point of the robot geom in the part geom's box;
-        // that face normal pushes the robot point out: flipped, it acts on
-        // the part
+        // a sample point of the robot geom in the part geom's box; that
+        // face normal pushes the robot point out: flipped, it acts on the
+        // part
         float rc[3], wq[4], wp[3];
-        qrot(rgq + 4 * g, lc, rc);
-        for (int d = 0; d < 3; ++d) point[d] = rgp[3 * g + d] + rc[d];
+        qrot(r.rgq + 4 * g, lc, rc);
+        for (int d = 0; d < 3; ++d) point[d] = r.rgp[3 * g + d] + rc[d];
         qmul(qa, lc + 6, wq);
         qrot(qa, lc + 3, wp);
         for (int d = 0; d < 3; ++d) wp[d] += xa[d];
@@ -384,105 +639,38 @@ arm_control_step_kernel(ArmParams p) {
         for (int d = 0; d < 3; ++d) nrm[d] = -nrm[d];
       }
       fm = inside && (depth > -slop);
-      lane_prep(c, k, point, nrm, depth, fm);
-      // robot lanes have no b part: F_RB keeps the world point, F_VB the
-      // robot surface velocity there; F_SCALE holds the depth until phase G
-      // sets the lane scale
-      LN(F_SCALE, k) = depth;
+      lane_prep(c, pa, -1, point, nrm, depth, fm, lc, L);
+      // robot lanes have no b part: rb keeps the robot surface velocity at
+      // the contact point
       float rel[3], wxr[3];
-      for (int d = 0; d < 3; ++d) {
-        LN(F_RB + d, k) = point[d];
-        rel[d] = point[d] - rgp[3 * g + d];
-      }
-      cross3(rgw + 3 * g, rel, wxr);
-      for (int d = 0; d < 3; ++d) LN(F_VB + d, k) = rgv[3 * g + d] + wxr[d];
-      if (inside && finger >= 0) touch[finger * P + pa] = 1.f;
+      for (int d = 0; d < 3; ++d) rel[d] = point[d] - r.rgp[3 * g + d];
+      cross3(r.rgw + 3 * g, rel, wxr);
+      for (int d = 0; d < 3; ++d) L.rb[d] = r.rgv[3 * g + d] + wxr[d];
+      store_lane_prep(c, k, L);
+      LN(F_DEPTH, k) = depth;
+      if (inside && finger >= 0) r.touch[finger * P + pa] = 1.f;
     }
-    __syncthreads();
+    prepare_sat_lanes(c);
+    clk.sync();
+    clk.mark(1);
 
-    // ---- E. SAT gate; deepest engaged penetration of each hand geom ----
-    sat_gate(c);
-    for (int g = c.warp; g < NRG; g += c.nwarps) {
-      float pen = -1e9f;
-      for (int e = p.rg_off[g] + c.lane; e < p.rg_off[g + 1]; e += 32) {
-        const int k = p.rg_ent[e];
-        if (LN(F_MASK, k) > 0.f) pen = fmaxf(pen, LN(F_SCALE, k));
-      }
-      pen = warp_max(pen);
-      if (c.lane == 0) rgpen[g] = pen;
-    }
-    __syncthreads();
+    // ---- the solver passes; the last group pass integrates the parts ----
+    solver_passes<SEGW, false, true>(c, Lz, no_slot, press, hooks, clk);
 
-    // ---- F. squeeze servo gates per arm; active-lane counts ----
-    for (int a = tid; a < NARM; a += nt) {
-      float pen = -1e9f;
-      for (int g = 0; g < NRG; ++g)
-        if (p.rg_i[g * RG_I + 1] == a) pen = fmaxf(pen, rgpen[g]);
-      const bool deep = pen > p.squeeze;
-      bool closing = false;
-      for (int i = 0; i < p.NGRIP; ++i) {
-        if (p.grip_i[i * GRIP_I] != a) continue;
-        const int row = p.grip_i[i * GRIP_I + 1];
-        const int gj = p.grip_i[i * GRIP_I + 2];
-        const float cs = p.grip_f[i];
-        closing = closing || (cs * (ctrl[row] - qp[gj]) > 0.f);
-        const float held = cs > 0.f ? fminf(ctrl[row], qp[gj]) : fmaxf(ctrl[row], qp[gj]);
-        ctrl_eff[row] = deep ? held : ctrl[row];
-      }
-      arm_deepf[a] = (closing && (pen > p.half_squeeze)) ? 1.f : 0.f;
-    }
-    count_active(c);
-    __syncthreads();
-
-    // ---- G. lane scale, warm start, finger-servo press; actuator forces ----
-    for (int k = tid; k < K; k += nt) {
-      if (k < Kb) {
-        warm_start_lane(c, k, 200.f);
-        continue;
-      }
-      warm_start_lane(c, k, 30.f);
-      const int finger = p.rl_i[(k - Kb) * RL_I + 1];
-      if (p.press_vel > 0.f && finger >= 0 && LN(F_MASK, k) > 0.f &&
-          arm_deepf[finger >> 1] > 0.f) {
-        for (int d = 0; d < 3; ++d) LN(F_VB + d, k) += p.press_vel * LN(F_N + d, k);
-      }
-    }
-    for (int j = tid; j < NJ; j += nt) {
-      float t = 0.f;
-      for (int i = 0; i < NA; ++i) {
-        if (p.act_i[i * ACT_I] != j) continue;
-        const float* af = p.act_f + i * ACT_F;
-        const int kind = p.act_i[i * ACT_I + 1];
-        const float cc = fminf(fmaxf(ctrl_eff[i], af[1]), af[2]);
-        float f;
-        if (kind == VELOCITY) {
-          f = af[0] * cc;
-        } else if (kind == POSITION) {
-          f = af[0] * (cc - qp[j]);
-        } else {
-          f = fminf(fmaxf(af[0] * cc, af[3]), af[4]);
-        }
-        t += f;
-      }
-      tau[j] = t + p.taux[(size_t)b * NJ + j];
-    }
-    __syncthreads();
-
-    // ---- H. Jacobi sweeps, velocity clamp, part integration ----
-    jacobi_integrate<true>(c);
-
-    // ---- I. floor projection; force and torque on each hand geom ----
-    floor_lift(c);
-    for (int g = c.warp; g < NRG; g += c.nwarps) {
+    // ---- force and torque on each hand geom, beside the last group pass
+    // (the warps from the top down, the group warps come last) ----
+#pragma unroll 1
+    for (int g = c.nwarps - 1 - c.warp; g < NRG; g += c.nwarps) {
       float sv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       for (int e = p.rg_off[g] + c.lane; e < p.rg_off[g + 1]; e += 32) {
         const int k = p.rg_ent[e];
+        const int pa = pk_part_a(c.slot_pk[k]);
         const float fm = LN(F_MASK, k);
         const float l0 = LN(F_LAM, k), l1 = LN(F_LAM + 1, k), l2 = LN(F_LAM + 2, k);
         float imp[3], rel[3], tq[3];
         for (int d = 0; d < 3; ++d) {
           imp[d] = (l0 * LN(F_N + d, k) + l1 * LN(F_T1 + d, k) + l2 * LN(F_T2 + d, k)) * fm;
-          rel[d] = LN(F_RB + d, k) - rgp[3 * g + d];
+          rel[d] = (LN(F_RA + d, k) + SP(S_GCOM + d, pa)) - r.rgp[3 * g + d];
         }
         cross3(rel, imp, tq);
         for (int d = 0; d < 3; ++d) {
@@ -493,93 +681,22 @@ arm_control_step_kernel(ArmParams p) {
       for (int d = 0; d < 6; ++d) sv[d] = warp_sum(sv[d]);
       if (c.lane == 0) {
         for (int d = 0; d < 3; ++d) {
-          rgF[3 * g + d] = sv[d];
-          rgT[3 * g + d] = sv[3 + d];
+          r.rgF[3 * g + d] = sv[d];
+          r.rgT[3 * g + d] = sv[3 + d];
         }
       }
     }
-    __syncthreads();
-
-    // ---- J. contact reaction on the joints p_c = J^T(-lambda), the joint
-    // update's right-hand side; pinched parts for the held clamp ----
-    for (int j = tid; j < NJ; j += nt) {
-      float pc = 0.f;
-      if (p.couple) {
-        const bool hinge = p.jnt_i[j * JNT_I + 1] == HINGE;
-        const float* ax = axis_w + 3 * j;
-        for (int g = 0; g < NRG; ++g) {
-          if (p.rg_anc[g * NJ + j] == 0.f) continue;
-          if (hinge) {
-            float d[3] = {rgp[3 * g] - anchor_w[3 * j], rgp[3 * g + 1] - anchor_w[3 * j + 1],
-                          rgp[3 * g + 2] - anchor_w[3 * j + 2]};
-            float dxF[3];
-            cross3(d, rgF + 3 * g, dxF);
-            pc -= ax[0] * (rgT[3 * g] + dxF[0]) + ax[1] * (rgT[3 * g + 1] + dxF[1]) +
-                  ax[2] * (rgT[3 * g + 2] + dxF[2]);
-          } else {
-            pc -= dot3(ax, rgF + 3 * g);
-          }
-        }
-        pc = fminf(fmaxf(pc, -p.pc_cap), p.pc_cap);
-      }
-      const float* jf = p.jnt_f + j * JNT_F;
-      rhs[j] = tau[j] - jf[6] * tanhf(qv[j] / 0.01f) + pc / dt;
-      qv_old[j] = qv[j];
-    }
-    if (p.held_vel > 0.f) {
-      for (int i = tid; i < P; i += nt) {
-        float pn = 0.f;
-        for (int a = 0; a < NARM; ++a)
-          if (touch[(2 * a) * P + i] > 0.f && touch[(2 * a + 1) * P + i] > 0.f &&
-              arm_deepf[a] > 0.f)
-            pn = 1.f;
-        pin[i] = pn;
-      }
-    }
-    __syncthreads();
-
-    // ---- K. joint update with G1, G2, velocity and position limits; the
-    // optional held-velocity clamp on pinched groups ----
-    for (int j = tid; j < NJ; j += nt) {
-      float a1 = 0.f, a2 = 0.f;
-      for (int m = 0; m < NJ; ++m) {
-        a1 += g1[j * NJ + m] * qv_old[m];
-        a2 += g2[j * NJ + m] * rhs[m];
-      }
-      const float* jf = p.jnt_f + j * JNT_F;
-      float v = a1 + a2;
-      v = fminf(fmaxf(v, -jf[7]), jf[7]);
-      const float q_new = qp[j] + dt * v;
-      const float q_cl = fminf(fmaxf(q_new, jf[8]), jf[9]);
-      if (q_cl != q_new) v = 0.f;
-      qp[j] = q_cl;
-      qv[j] = v;
-    }
-    if (p.held_vel > 0.f) {
-      for (int i = tid; i < P; i += nt) {
-        bool pinned = false;
-        for (int q = 0; q < P; ++q)
-          if (c.grp[q] == c.grp[i] && pin[q] > 0.f) pinned = true;
-        if (!pinned) continue;
-        float lv[3] = {SP(S_LIN, i), SP(S_LIN + 1, i), SP(S_LIN + 2, i)};
-        float av[3] = {SP(S_ANG, i), SP(S_ANG + 1, i), SP(S_ANG + 2, i)};
-        const float sl = fminf(1.f, p.held_vel / fmaxf(sqrtf(dot3(lv, lv)), 1e-9f));
-        const float sa = fminf(1.f, p.held_angvel / fmaxf(sqrtf(dot3(av, av)), 1e-9f));
-        for (int d = 0; d < 3; ++d) {
-          SP(S_LIN + d, i) = lv[d] * sl;
-          SP(S_ANG + d, i) = av[d] * sa;
-        }
-      }
-    }
-    __syncthreads();
+    clk.sync();
+    clk.mark(5);
   }
+  clk.store(p.clocks, b);
 
   store_parts(c, b, p.pos_out, p.quat_out, p.lin_out, p.ang_out);
   for (int j = tid; j < NJ; j += nt) {
-    p.qpos_out[(size_t)b * NJ + j] = qp[j];
-    p.qvel_out[(size_t)b * NJ + j] = qv[j];
+    p.qpos_out[(size_t)b * NJ + j] = r.qp[j];
+    p.qvel_out[(size_t)b * NJ + j] = r.qv[j];
   }
-  for (int i = tid; i < NT; i += nt) p.touch_out[(size_t)b * NT + i] = touch[i] > 0.f ? 1 : 0;
+  for (int i = tid; i < NT; i += nt) p.touch_out[(size_t)b * NT + i] = r.touch[i] > 0.f ? 1 : 0;
 }
 
 }  // namespace
@@ -588,18 +705,26 @@ extern "C" {
 
 // layout constants the wrapper sizes and checks its buffers with
 int arm_lane_floats() { return NF_ARM; }
-int arm_part_floats() { return PF; }
+int arm_segment_width() { return SEGW; }
+int arm_sum_columns() { return NCOL; }
+int arm_max_b_entries() { return MAX_B_ENTRIES; }
+// words of shared memory a block uses before its b buffer and lane working
+// set: part fields, group labels, partial sums, the robot's block, tables
+int arm_fixed_words(int P, int NB, int NJ, int NA, int NRG, int NARM, int Kf, int Ke, int KS,
+                    int NBS, int threads) {
+  return PF * P + group_words(P, threads / SEGW, NBS) + NCOL * (threads / SEGW) +
+         RobotLayout(P, NB, NJ, NA, NRG, NARM).total + TableLayout(P, Kf, Ke, KS).total;
+}
 int arm_lane_const_cols() { return LC; }
 int arm_num_ptrs() { return NUM_PTRS; }
 int arm_num_ints() { return NUM_INTS; }
 int arm_num_floats() { return NUM_FLOATS; }
-int arm_robot_floats(int P, int NB, int NJ, int NA, int NRG, int NARM) {
-  return RobotLayout(P, NB, NJ, NA, NRG, NARM).total;
-}
+int arm_num_phases() { return NPHASE; }
 
 // Launches the kernel on `stream`, one block of ints[N_THREADS] threads per
 // env. ptrs, ints and floats are host arrays indexed by the enums above.
-// ptrs[SCRATCH] null keeps the lane working set in dynamic shared memory.
+// ptrs[SCRATCH] null keeps the lane working set and the b buffer in dynamic
+// shared memory.
 // Returns the CUDA error code of the launch (0 on success).
 int arm_control_step(void* const* ptrs, const int* ints, const float* floats, void* stream) {
   ArmParams p;
@@ -623,11 +748,13 @@ int arm_control_step(void* const* ptrs, const int* ints, const float* floats, vo
   p.qvel_out = static_cast<float*>(ptrs[O_QVEL]);
   p.touch_out = static_cast<uint8_t*>(ptrs[O_TOUCH]);
   p.part_const = static_cast<const float*>(ptrs[T_PART_CONST]);
-  p.lane_const = static_cast<const float*>(ptrs[T_LANE_CONST]);
-  p.lane_part = static_cast<const int*>(ptrs[T_LANE_PART]);
-  p.part_off = static_cast<const int*>(ptrs[T_PART_OFF]);
-  p.part_nfloor = static_cast<const int*>(ptrs[T_PART_NFLOOR]);
-  p.part_ent = static_cast<const int*>(ptrs[T_PART_ENT]);
+  p.lane_const = static_cast<const float4*>(ptrs[T_LANE_CONST]);
+  p.slot_i = static_cast<const int4*>(ptrs[T_SLOT_I]);
+  p.seg_off = static_cast<const int*>(ptrs[T_SEG_OFF]);
+  p.b_off = static_cast<const int*>(ptrs[T_B_OFF]);
+  p.floor_off = static_cast<const int*>(ptrs[T_FLOOR_OFF]);
+  p.floor_slot = static_cast<const int*>(ptrs[T_FLOOR_SLOT]);
+  p.sat_corner = static_cast<const int*>(ptrs[T_SAT_CORNER]);
   p.body_f = static_cast<const float*>(ptrs[T_BODY_F]);
   p.body_i = static_cast<const int*>(ptrs[T_BODY_I]);
   p.jnt_f = static_cast<const float*>(ptrs[T_JNT_F]);
@@ -639,16 +766,16 @@ int arm_control_step(void* const* ptrs, const int* ints, const float* floats, vo
   p.act_i = static_cast<const int*>(ptrs[T_ACT_I]);
   p.grip_i = static_cast<const int*>(ptrs[T_GRIP_I]);
   p.grip_f = static_cast<const float*>(ptrs[T_GRIP_F]);
-  p.rl_i = static_cast<const int*>(ptrs[T_RL_I]);
   p.rg_off = static_cast<const int*>(ptrs[T_RG_OFF]);
   p.rg_ent = static_cast<const int*>(ptrs[T_RG_ENT]);
   p.scratch = static_cast<float*>(ptrs[SCRATCH]);
+  p.clocks = static_cast<long long*>(ptrs[CLOCKS]);
   p.P = ints[N_P];
+  p.KS = ints[N_KS];
+  p.LPT = ints[N_LPT];
+  p.NBS = ints[N_NBS];
   p.Kf = ints[N_KF];
-  p.Kp = ints[N_KP];
   p.Ke = ints[N_KE];
-  p.Kr = ints[N_KR];
-  p.L = ints[N_L];
   p.n = ints[N_SUBSTEPS];
   p.iters = ints[N_ITERS];
   p.NB = ints[N_NB];
@@ -670,13 +797,29 @@ int arm_control_step(void* const* ptrs, const int* ints, const float* floats, vo
   p.held_vel = floats[X_HELD_VEL];
   p.held_angvel = floats[X_HELD_ANGVEL];
   const int smem_bytes = ints[N_SMEM];
-  cudaError_t err = cudaFuncSetAttribute(
-      arm_control_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (ints[N_THREADS] != 512 || p.KS != ints[N_THREADS] * p.LPT) return 1;  // invalid value
+  void (*kernel)(ArmParams) =
+      p.scratch ? arm_control_step_kernel<true> : arm_control_step_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   if (ints[N_B] > 0) {
-    arm_control_step_kernel<<<ints[N_B], ints[N_THREADS], smem_bytes,
-                              static_cast<cudaStream_t>(stream)>>>(p);
+    kernel<<<ints[N_B], ints[N_THREADS], smem_bytes, static_cast<cudaStream_t>(stream)>>>(p);
   }
+  return (int)cudaGetLastError();
+}
+
+// blocks an SM holds of the kernel
+int arm_resident_blocks(int scratch, int threads, int smem_bytes) {
+  return scratch ? resident_blocks(arm_control_step_kernel<true>, threads, smem_bytes)
+                 : resident_blocks(arm_control_step_kernel<false>, threads, smem_bytes);
+}
+// `n` bare block barriers in each of `blocks` blocks (see physics_common.cuh)
+int arm_barrier_probe(int blocks, int threads, int smem_bytes, int n, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      barrier_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  barrier_probe_kernel<<<blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(n);
   return (int)cudaGetLastError();
 }
 

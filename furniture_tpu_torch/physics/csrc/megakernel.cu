@@ -2,11 +2,11 @@
 //
 // Replaces furniture_tpu/physics/megakernel.py::MegaPhysics._kernel_body,
 // the Pallas TPU kernel of the JAX package. It computes what that kernel
-// computes: per substep, group-composite mass properties from the [P,P]
-// membership, gravity scaled per part, the narrow phase (8 floor-corner
-// lanes per geom, 16 vertex-in-box lanes per cross-part geom pair, one SAT
-// edge lane per pair that fires only where the pair's 16 corner lanes are
-// empty and the groups differ), tangent basis, effective mass, the solref
+// computes: per substep, group-composite mass properties from the group
+// labels, gravity scaled per part, the narrow phase (8 floor-corner lanes
+// per geom, 16 vertex-in-box lanes per cross-part geom pair, one SAT edge
+// lane per pair that fires only where the pair's 16 corner lanes are empty
+// and the groups differ), tangent basis, effective mass, the solref
 // Baumgarte bias capped at 0.5 m/s, the mass-split lane scale, a Jacobi
 // solve with a friction cone warm-started from the previous substep
 // (lambda starts at zero at every launch, capped at 200*inv_w*dt), the
@@ -18,34 +18,42 @@
 // engine.py, which is the plain PyTorch version it is held against.
 //
 // What bounds it on the H100. The state moved through HBM is 560 B per env
-// per launch (300 B in, 260 B out): about 2.3 MB at B = 4096, under 1 us of
-// HBM bandwidth. The work is ~0.3-0.4 MFLOP of FP32 per env per substep on
-// table_lack (K = 210 lanes x 13 solver sweeps dominate), i.e. tens of
-// GFLOP per launch at B = 4096, n = 50. So the bound is FP32 arithmetic on
-// the CUDA cores plus the latency of the ~32 block barriers per substep,
-// not memory.
+// per launch (300 B in, 260 B out): under 1 us of HBM bandwidth at
+// B = 4096. The function's work is ~0.4 MFLOP of FP32 per env per substep
+// on table_lack (K = 210 lanes x 13 solver passes dominate): 1.25 ms at the
+// card's FP32 peak for n = 50, B = 4096. Neither binds: a launch is 650
+// dependent solver passes, each a lane half and a group half with a block
+// barrier after each. The bare barriers alone are a floor of ~0.4 ms (27 a
+// substep at ~35 ns each with 4 blocks an SM, 8 waves of blocks); what the
+// kernel takes beyond that is the dependent instructions between the
+// barriers: about half of the SM's issue slots are used, the rest is the
+// latency of shared-memory loads and shuffles that 32 resident warps do not
+// cover. The group half is a chain of ~10 dependent loads in 5 of 8 warps.
 //
-// What the design does about that bound: one thread block per env runs the
-// whole n-substep loop, so the state, the group aggregates and (when it
-// fits) the per-lane working set stay in shared memory for the launch; the
-// lanes are spread over the block's threads; the per-part reductions of
-// each Jacobi sweep go one warp per part over a static lane list, summed in
-// a fixed order (per-thread strides, then warp shuffles, then the group's
-// parts in index order), so results do not change from run to run. The
-// working set (~24 floats per lane) lives in dynamic shared memory when it
-// fits the 227 KB opt-in limit, else in a global scratch buffer the
-// wrapper allocates; one pointer serves both.
+// What the design does about that (the shared device code and the layout
+// are described in physics_common.cuh): one thread block of 256 threads per
+// env runs the whole n-substep loop. On a model whose padded lanes fit one
+// per thread (table_lack: 240 slots) a lane's working set stays in the
+// registers of its thread from the narrow phase to the last solver pass,
+// shared memory holds only the part fields, the lane masks, the b-side
+// buffer, the partial sums and the small static tables (~10 KB), and four
+// blocks share an SM (64 registers a thread; the 120 bytes it spills lie
+// outside the passes) so that one block's barriers hide behind another's
+// arithmetic. On a larger model (chair_balser_0115, K = 4153) each thread
+// loops over its lanes and the working set lives field-major in dynamic
+// shared memory when it fits the 227 KB opt-in limit, else in a global
+// scratch buffer the wrapper allocates: the same code, one pointer, not on
+// the main path.
 
 #include "physics_common.cuh"
-
-// The device code of a substep (narrow phase, solver prep, Jacobi sweeps,
-// integration, floor projection) lives in physics_common.cuh, shared with
-// the arm kernel (arm_megakernel.cu); this file is the free-part kernel's
-// parameters, its phase sequence and its C interface.
 
 namespace {
 
 using namespace furniture;
+
+// lanes of a warp that share a part: half a warp keeps the padding small on
+// small furniture (table_lack: 5 parts x 3 half-warps)
+constexpr int SEGW = 16;
 
 struct Params {
   const float* pos;
@@ -59,26 +67,33 @@ struct Params {
   float* lin_out;
   float* ang_out;
   const float* part_const;   // [P,13]: mass, com (3), inertia (9)
-  const float* lane_const;   // [K,LC]
-  const int* lane_part;      // [K,2]: part_a, part_b (-1: floor)
-  const int* part_off;       // [P+1] offsets into part_ent
-  const int* part_nfloor;    // [P] floor lanes at the head of each list
-  const int* part_ent;       // [E] (lane << 1) | side (0: a, 1: b)
-  float* scratch;            // [B, NF*K] or null (working set in smem)
-  int P, Kf, Kp, Ke, n, iters;
+  const float4* lane_const;  // [KS,LC]
+  const int4* slot_i;        // [KS,SI]
+  const int* seg_off;        // [P+1]
+  const int* b_off;          // [P+1]
+  const int* floor_off;      // [P+1]
+  const int* floor_slot;     // [Kf]
+  const int* sat_corner;     // [Ke,16]
+  float* scratch;            // [B, NCOL*NBS + NF*KS] or null (all in smem)
+  long long* clocks;         // [B, NPHASE] or null (FT_PHASE_CLOCKS builds)
+  int P, KS, LPT, NBS, Kf, Ke, n, iters;
   float dt, dtg, slop, relax, maxv;
 };
 
-__global__ void __launch_bounds__(256)
+// REGS: one lane per thread (LPT = 1), its working set in registers and the
+// rest in shared memory. SCRATCH: the b buffer and the lane working set are in
+// the global scratch buffer (else in shared memory: the compiler then knows
+// the address space of every access in the passes).
+template <bool REGS, bool SCRATCH>
+__global__ void __launch_bounds__(256, REGS ? 4 : 1)
 mega_substeps_kernel(Params p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   Block c;
   c.P = p.P;
-  c.Kf = p.Kf;
-  c.Kp = p.Kp;
-  c.Ke = p.Ke;
-  c.K = p.Kf + p.Kp + p.Ke;
+  c.KS = p.KS;
+  c.LPT = p.LPT;
+  c.NBS = p.NBS;
   c.iters = p.iters;
   c.dt = p.dt;
   c.dtg = p.dtg;
@@ -90,42 +105,78 @@ mega_substeps_kernel(Params p) {
   c.warp = c.tid >> 5;
   c.lane = c.tid & 31;
   c.nwarps = c.nt >> 5;
+  c.NSEG = c.nt / SEGW;
   c.sp = smem;                                          // [PF * P]
-  c.grp = reinterpret_cast<int*>(c.sp + PF * c.P);      // [P]
-  c.lanes = p.scratch ? p.scratch + (size_t)b * NF * c.K
-                      : reinterpret_cast<float*>(c.grp + c.P);
+  c.grp = reinterpret_cast<int*>(c.sp + PF * c.P);      // [group_words]
+  c.part = reinterpret_cast<float*>(c.grp + group_words(c.P, c.NSEG, c.NBS));   // [NSEG * NCOL]
+  int* tables = reinterpret_cast<int*>(c.part + NCOL * c.NSEG);
+  const TableLayout tl(c.P, p.Kf, p.Ke, REGS ? 0 : c.KS);
+  constexpr int nf = REGS ? NF_REGS : NF;
+  c.bbuf = SCRATCH ? p.scratch + (size_t)b * (NCOL * c.NBS + nf * c.KS)
+                   : reinterpret_cast<float*>(tables + tl.total);   // [NBS * NCOL]
+  c.lanes = c.bbuf + NCOL * c.NBS;                      // [nf * KS]
   c.lane_const = p.lane_const;
-  c.lane_part = p.lane_part;
-  c.part_off = p.part_off;
-  c.part_nfloor = p.part_nfloor;
-  c.part_ent = p.part_ent;
+  c.slot_i = p.slot_i;
+  const int rounds = REGS ? 1 : c.LPT;
 
+  stage_tables(c, tables, tl, p.seg_off, p.b_off, p.floor_off, p.floor_slot, p.sat_corner,
+               p.Kf, p.Ke, !REGS);
   load_parts(c, b, p.pos, p.quat, p.lin, p.ang, p.group, p.gscale, p.part_const);
-  __syncthreads();
-
-  for (int s = 0; s < p.n; ++s) {
-    part_frames(c);
-    __syncthreads();
-    group_aggregates(c);
-    __syncthreads();
-    // narrow phase and solver prep, every lane
-    for (int k = c.tid; k < c.K; k += c.nt) {
-      float point[3], nrm[3], depth;
-      bool fm;
-      base_lane_contact(c, k, point, nrm, &depth, &fm);
-      lane_prep(c, k, point, nrm, depth, fm);
-    }
-    __syncthreads();
-    sat_gate(c);
-    __syncthreads();
-    count_active(c);
-    __syncthreads();
-    for (int k = c.tid; k < c.K; k += c.nt) warm_start_lane(c, k, 200.f);
-    __syncthreads();
-    jacobi_integrate<false>(c);
-    floor_lift(c);
-    __syncthreads();
+  LaneRegs Lr;
+  clear_lane(Lr);
+  const SlotInfo sr = load_slot(c, thread_slot(c, 0));
+  if (!REGS) {
+    for (int r = 0; r < rounds; ++r) store_lambda(c, thread_slot(c, r), Lr);
   }
+  const ArmPress no_press = {nullptr, 0.f};
+  const NoHooks no_hooks;
+  __syncthreads();
+  build_group_lists(c, c.grp);
+  // phases: 0 frames+aggregates, 1 narrow phase+prep, 2 the first pass
+  // (gates+counts+warm start), 3 group half of the passes, 4 lane half,
+  // 5 integration+floor
+  PhaseClock clk;
+  clk.start();
+
+#pragma unroll 1
+  for (int s = 0; s < p.n; ++s) {
+    // part frames, group aggregates, gravity: the group's warp, straight
+    // after its last pass of the substep before
+    group_head(c);
+    clk.sync();
+    clk.mark(0);
+    // narrow phase and solver prep, every lane (lanes in memory: the SAT
+    // lanes in one warp)
+#pragma unroll 1
+    for (int r = 0; r < rounds; ++r) {
+      const int k = thread_slot(c, r);
+      const SlotInfo si = REGS ? sr : load_slot(c, k);
+      if (si.kind() == KIND_PAD || (!REGS && si.kind() == KIND_SAT)) continue;
+      LaneRegs Lm;
+      LaneRegs& L = REGS ? Lr : Lm;
+      float lc[LC], point[3], nrm[3], depth;
+      bool fm;
+      load_lane_const(c, k, lc);
+      if (REGS && si.kind() == KIND_SAT) {
+        sat_lane_contact(c, si.pa(), si.pb(), lc, point, nrm, &depth, &fm);
+      } else {
+        corner_lane_contact(c, si.kind(), si.pa(), si.pb(), lc, point, nrm, &depth, &fm);
+      }
+      lane_prep(c, si.pa(), si.pb(), point, nrm, depth, fm, lc, L);
+      if (REGS) {
+        LN(F_MASK, k) = L.mask;
+      } else {
+        store_lane_prep(c, k, L);
+      }
+    }
+    if (!REGS) prepare_sat_lanes(c);
+    clk.sync();
+    clk.mark(1);
+    solver_passes<SEGW, REGS, false>(c, Lr, sr, no_press, no_hooks, clk);
+    clk.mark(5);
+  }
+  __syncthreads();
+  clk.store(p.clocks, b);
 
   store_parts(c, b, p.pos_out, p.quat_out, p.lin_out, p.ang_out);
 }
@@ -134,21 +185,32 @@ mega_substeps_kernel(Params p) {
 
 extern "C" {
 
-// layout constants the wrapper sizes its buffers with
-int mega_lane_floats() { return NF; }
-int mega_part_floats() { return PF; }
+// layout constants the wrapper sizes its buffers and tables with
+int mega_lane_floats(int regs) { return regs ? NF_REGS : NF; }
 int mega_lane_const_cols() { return LC; }
+int mega_segment_width() { return SEGW; }
+int mega_sum_columns() { return NCOL; }
+int mega_num_phases() { return NPHASE; }
+int mega_max_b_entries() { return MAX_B_ENTRIES; }
+// words of shared memory a block uses before its b buffer and lane working
+// set: part fields, group labels and lists, partial sums, static tables
+int mega_fixed_words(int P, int Kf, int Ke, int KS, int NBS, int regs, int threads) {
+  return PF * P + group_words(P, threads / SEGW, NBS) + NCOL * (threads / SEGW) +
+         TableLayout(P, Kf, Ke, regs ? 0 : KS).total;
+}
 
 // Launches the kernel on `stream` with one block of `threads` threads per
-// env. `scratch` null keeps the lane working set in dynamic shared memory.
-// Returns the CUDA error code of the launch (0 on success).
+// env. `regs` selects the one-lane-per-thread kernel (LPT must be 1).
+// `scratch` null keeps the lane working set and the b buffer in dynamic
+// shared memory. Returns the CUDA error code of the launch (0 on success).
 int mega_substeps(const void* pos, const void* quat, const void* lin, const void* ang,
                   const void* group, const void* gscale, void* pos_out, void* quat_out,
                   void* lin_out, void* ang_out, const void* part_const,
-                  const void* lane_const, const void* lane_part, const void* part_off,
-                  const void* part_nfloor, const void* part_ent, void* scratch, int B,
-                  int P, int Kf, int Kp, int Ke, int n, int iters, float dt, float dtg,
-                  float slop, float relax, float maxv, int threads, int smem_bytes,
+                  const void* lane_const, const void* slot_i, const void* seg_off,
+                  const void* b_off, const void* floor_off, const void* floor_slot,
+                  const void* sat_corner, void* scratch, void* clocks, int B, int P, int KS,
+                  int LPT, int NBS, int Kf, int Ke, int n, int iters, float dt, float dtg, float slop,
+                  float relax, float maxv, int threads, int smem_bytes, int regs,
                   void* stream) {
   Params p;
   p.pos = static_cast<const float*>(pos);
@@ -162,15 +224,20 @@ int mega_substeps(const void* pos, const void* quat, const void* lin, const void
   p.lin_out = static_cast<float*>(lin_out);
   p.ang_out = static_cast<float*>(ang_out);
   p.part_const = static_cast<const float*>(part_const);
-  p.lane_const = static_cast<const float*>(lane_const);
-  p.lane_part = static_cast<const int*>(lane_part);
-  p.part_off = static_cast<const int*>(part_off);
-  p.part_nfloor = static_cast<const int*>(part_nfloor);
-  p.part_ent = static_cast<const int*>(part_ent);
+  p.lane_const = static_cast<const float4*>(lane_const);
+  p.slot_i = static_cast<const int4*>(slot_i);
+  p.seg_off = static_cast<const int*>(seg_off);
+  p.b_off = static_cast<const int*>(b_off);
+  p.floor_off = static_cast<const int*>(floor_off);
+  p.floor_slot = static_cast<const int*>(floor_slot);
+  p.sat_corner = static_cast<const int*>(sat_corner);
   p.scratch = static_cast<float*>(scratch);
+  p.clocks = static_cast<long long*>(clocks);
   p.P = P;
+  p.KS = KS;
+  p.LPT = LPT;
+  p.NBS = NBS;
   p.Kf = Kf;
-  p.Kp = Kp;
   p.Ke = Ke;
   p.n = n;
   p.iters = iters;
@@ -179,12 +246,30 @@ int mega_substeps(const void* pos, const void* quat, const void* lin, const void
   p.slop = slop;
   p.relax = relax;
   p.maxv = maxv;
-  cudaError_t err = cudaFuncSetAttribute(
-      mega_substeps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (threads != 256 || (regs && LPT != 1) || KS != threads * LPT) return 1;  // invalid value
+  if (regs && p.scratch) return 1;   // one lane a thread always fits shared memory
+  void (*kernel)(Params) = regs ? mega_substeps_kernel<true, false>
+                           : p.scratch ? mega_substeps_kernel<false, true>
+                                       : mega_substeps_kernel<false, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  if (B > 0) {
-    mega_substeps_kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(p);
-  }
+  if (B > 0) kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// blocks an SM holds of the kernel that runs this layout
+int mega_resident_blocks(int regs, int scratch, int threads, int smem_bytes) {
+  return regs      ? resident_blocks(mega_substeps_kernel<true, false>, threads, smem_bytes)
+         : scratch ? resident_blocks(mega_substeps_kernel<false, true>, threads, smem_bytes)
+                   : resident_blocks(mega_substeps_kernel<false, false>, threads, smem_bytes);
+}
+// `n` bare block barriers in each of `blocks` blocks (see physics_common.cuh)
+int mega_barrier_probe(int blocks, int threads, int smem_bytes, int n, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      barrier_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  barrier_probe_kernel<<<blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(n);
   return (int)cudaGetLastError();
 }
 

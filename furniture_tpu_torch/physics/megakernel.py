@@ -15,6 +15,12 @@ that existed only for the TPU's matrix unit) and wraps the launch:
   tensors. There is no fallback: any other device, or a kernel that fails
   to build or launch, raises.
 * ``launches`` counts kernel launches, and nothing else.
+
+The kernel reads its lanes in *slot* order (:func:`slot_tables`): the lanes
+sorted by their a-side part and dealt to the threads so that the lanes of a
+segment of a warp share that part, padded with masked dummy slots. The
+tables in lane order (``lane_const``, ``part_a``, ``part_ent`` ...) stay as
+the description of the model; the permutation is built once, here.
 """
 
 from __future__ import annotations
@@ -33,34 +39,59 @@ from .state import PartState
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "megakernel.cu"
 THREADS = 256
+SEGMENT = 16   # csrc/megakernel.cu SEGW: threads of a warp that share a part
 # dynamic shared memory a block may opt into on Hopper (227 KB)
 MAX_SMEM = 232448
+
+# lane kinds (csrc/physics_common.cuh LaneKind)
+KIND_PAD, KIND_FLOOR, KIND_VERTEX, KIND_SAT, KIND_ROBOT1, KIND_ROBOT2 = range(6)
+LANE_CONST_COLS = 24   # csrc/physics_common.cuh LC: 22 columns padded to 16-byte rows
 
 _CORNER_SIGNS = np.array(
     [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)],
     np.float32,
 )  # [8,3]
 
-_lib = None
+# slot-order tables handed to the kernels (:func:`slot_tables`)
+SLOT_TABLES = (
+    "slot_const", "slot_i", "seg_off", "b_off", "floor_off", "floor_slot", "sat_corner",
+)
+
+_libs = {}
 
 
-def library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library."""
-    global _lib
-    if _lib is None:
-        lib = _cuda.load(SOURCE)
+def library(defines=()) -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library; with
+    ``_cuda.PHASE_CLOCKS`` the phase-clock build of the same source."""
+    if defines not in _libs:
+        lib = _cuda.load(SOURCE, defines)
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.mega_substeps.argtypes = (
-            [vp] * 17 + [i] * 7 + [f] * 5 + [i, i, vp]
+            [vp] * 20 + [i] * 9 + [f] * 5 + [i, i, i, vp]
         )
         lib.mega_substeps.restype = i
         lib.mega_error_string.argtypes = [i]
         lib.mega_error_string.restype = ctypes.c_char_p
-        for fn in ("mega_lane_floats", "mega_part_floats", "mega_lane_const_cols"):
+        for fn in ("mega_lane_const_cols", "mega_segment_width",
+                   "mega_sum_columns", "mega_num_phases"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i
-        _lib = lib
-    return _lib
+        lib.mega_lane_floats.argtypes = [i]
+        lib.mega_lane_floats.restype = i
+        lib.mega_max_b_entries.argtypes = []
+        lib.mega_max_b_entries.restype = i
+        lib.mega_fixed_words.argtypes = [i] * 7
+        lib.mega_fixed_words.restype = i
+        lib.mega_resident_blocks.argtypes = [i] * 4
+        lib.mega_resident_blocks.restype = i
+        lib.mega_barrier_probe.argtypes = [i, i, i, i, vp]
+        lib.mega_barrier_probe.restype = i
+        if (lib.mega_lane_const_cols(), lib.mega_segment_width(), lib.mega_max_b_entries()) != (
+            LANE_CONST_COLS, SEGMENT, MAX_B_ENTRIES
+        ):
+            raise RuntimeError("megakernel.cu slot layout changed")
+        _libs[defines] = lib
+    return _libs[defines]
 
 
 def make_batched_substeps(tables, cfg_sim, device):
@@ -101,11 +132,10 @@ class LanePhysics:
 
 
 def lane_lists(part_a, part_b, Kf: int, P: int):
-    """The kernels' static per-part lane lists: ``lane_part`` [K,2], and for
-    each part its side-a lanes (floor lanes first) then its side-b lanes as
+    """The static per-part lane lists in lane order: for each part its
+    side-a lanes (floor lanes first) then its side-b lanes as
     ``(lane << 1) | side`` in ``part_ent`` with offsets ``part_off`` and the
     count of leading floor lanes ``part_nfloor``."""
-    lane_part = np.stack([part_a, part_b], 1).astype(np.int32)
     ent, off, nfloor = [], [0], []
     for p in range(P):
         a = np.flatnonzero(part_a == p)
@@ -114,17 +144,131 @@ def lane_lists(part_a, part_b, Kf: int, P: int):
         off.append(len(ent))
         nfloor.append(int(np.sum(a < Kf)))
     return (
-        lane_part,
         np.asarray(ent, np.int32),
         np.asarray(off, np.int32),
         np.asarray(nfloor, np.int32),
     )
 
 
+MAX_B_ENTRIES = 8190   # csrc/physics_common.cuh: the b-buffer index has 13 bits
+
+
+def pack_slot(part_a: int, part_b: int, kind: int, b_slot: int) -> int:
+    """The packed word of a slot (csrc/physics_common.cuh ``pk_*``): a-side
+    part, b-side part + 1, kind, b-buffer index + 1 (as an int32)."""
+    word = (int(part_a) | ((int(part_b) + 1) << 8) | (int(kind) << 16)
+            | ((int(b_slot) + 1) << 19))
+    return word - (1 << 32) if word >= (1 << 31) else word
+
+
+def slot_tables(part_a, part_b, kind, lane_const, aux0, aux1, n_floor, n_sat, P,
+                threads: int, segw: int) -> dict:
+    """The kernels' static tables in slot order.
+
+    A block of ``threads`` threads has ``threads // segw`` segments; thread
+    (warp ``w``, lane ``l``) belongs to segment ``w * (32 // segw) + l //
+    segw`` and makes ``lpt`` rounds, round ``r`` on slot ``(w * lpt + r) * 32
+    + l``. The lanes (given in lane order: floor lanes, vertex lanes pair
+    block AB then BA, SAT lanes, then any robot lanes) are sorted by a-side
+    part, stably, and each part gets whole segments, so every lane of a
+    segment has the same ``part_a``; what is left of a part's last segment
+    is padding (``lane_of_slot`` -1, kind ``KIND_PAD``). ``lpt`` is the
+    least number of rounds with which the parts' segments fit the block.
+
+    Returns ``lpt``, ``KS`` (slots), ``lane_of_slot`` [KS], ``slot_of_lane``
+    [K], ``seg_off`` [P+1] (each part's range of segments), ``b_slot_of_lane``
+    [K] (-1: no b side) and ``b_off`` [P+1] (the b-side buffer, ordered by
+    b-side part), ``floor_slot`` [Kf] with ``floor_off`` [P+1], ``sat_corner``
+    [Ke,16] (slots of each SAT lane's 16 vertex lanes: lanes ``Kf + e*8 + j``
+    and ``Kf + (Ke+e)*8 + j``), ``slot_i`` [KS,4] int32 (the packed word of
+    :func:`pack_slot`, ``aux0``, ``aux1``, 0) and ``slot_const`` [KS,24]."""
+    part_a = np.asarray(part_a, int)
+    part_b = np.asarray(part_b, int)
+    K = len(part_a)
+    if P > 254:
+        raise ValueError(f"the kernels pack a part index into 8 bits, model has {P} parts")
+    nseg = threads // segw
+    counts = np.bincount(part_a, minlength=P)
+    if np.count_nonzero(counts) > nseg:
+        raise ValueError(
+            f"{np.count_nonzero(counts)} parts with lanes need a segment each, a block of "
+            f"{threads} threads has {nseg}"
+        )
+    lpt = 1
+    while sum(-(-int(n) // (segw * lpt)) for n in counts) > nseg:
+        lpt += 1
+    KS = threads * lpt
+    per_warp = 32 // segw
+
+    def segment_slots(seg):
+        w, h = divmod(seg, per_warp)
+        return [(w * lpt + r) * 32 + h * segw + j for r in range(lpt) for j in range(segw)]
+
+    lane_of_slot = np.full(KS, -1, int)
+    seg_off = [0]
+    seg = 0
+    for p_ in range(P):
+        lanes = np.flatnonzero(part_a == p_)
+        for start in range(0, len(lanes), segw * lpt):
+            chunk = lanes[start : start + segw * lpt]
+            lane_of_slot[segment_slots(seg)[: len(chunk)]] = chunk
+            seg += 1
+        seg_off.append(seg)
+    slot_of_lane = np.full(K, -1, int)
+    used = np.flatnonzero(lane_of_slot >= 0)
+    slot_of_lane[lane_of_slot[used]] = used
+
+    b_lanes = np.flatnonzero(part_b >= 0)
+    b_lanes = b_lanes[np.argsort(part_b[b_lanes], kind="stable")]
+    b_slot_of_lane = np.full(K, -1, int)
+    b_slot_of_lane[b_lanes] = np.arange(len(b_lanes))
+    b_off = np.concatenate([[0], np.cumsum(np.bincount(part_b[b_lanes], minlength=P))])
+
+    floor_lanes = np.arange(n_floor)
+    floor_lanes = floor_lanes[np.argsort(part_a[:n_floor], kind="stable")]
+    floor_off = np.concatenate([[0], np.cumsum(np.bincount(part_a[:n_floor], minlength=P))])
+    corner_lanes = np.array(
+        [[n_floor + e * 8 + j for j in range(8)] + [n_floor + (n_sat + e) * 8 + j for j in range(8)]
+         for e in range(n_sat)], int,
+    ).reshape(n_sat, 16)
+
+    if len(b_lanes) > MAX_B_ENTRIES:
+        raise ValueError(f"{len(b_lanes)} lanes with a b side, the kernels index {MAX_B_ENTRIES}")
+    slot_i = np.zeros((KS, 4), np.int32)
+    slot_i[:, 0] = pack_slot(0, -1, KIND_PAD, -1)
+    slot_i[used, 0] = [
+        pack_slot(part_a[k], part_b[k], kind[k], b_slot_of_lane[k]) for k in lane_of_slot[used]
+    ]
+    slot_i[used, 1] = np.asarray(aux0, int)[lane_of_slot[used]]
+    slot_i[used, 2] = np.asarray(aux1, int)[lane_of_slot[used]]
+    slot_const = np.zeros((KS, LANE_CONST_COLS), np.float32)
+    slot_const[used, : lane_const.shape[1]] = lane_const[lane_of_slot[used]]
+    return dict(
+        lpt=lpt, KS=KS, lane_of_slot=lane_of_slot, slot_of_lane=slot_of_lane,
+        seg_off=np.asarray(seg_off, np.int32), b_slot_of_lane=b_slot_of_lane,
+        b_off=b_off.astype(np.int32), floor_slot=slot_of_lane[floor_lanes].astype(np.int32),
+        floor_off=floor_off.astype(np.int32),
+        sat_corner=slot_of_lane[corner_lanes].astype(np.int32).reshape(n_sat, 16),
+        slot_i=slot_i, slot_const=slot_const,
+    )
+
+
+def check_inputs(want: dict, dev) -> None:
+    """Raise unless every ``name: (tensor, shape, dtype)`` is a contiguous
+    CUDA tensor of that shape and dtype on ``dev``."""
+    for name, (t, shape, dtype) in want.items():
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}, got {t.device}")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: want {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 class MegaPhysics:
     """Constant tables and wrapper of the free-part kernel for one model."""
 
-    LANE_CONST_COLS = 22  # csrc/megakernel.cu LC
+    LANE_GEOM_COLS = 22  # geometry (20), friction, beta; the kernel pads to LANE_CONST_COLS
 
     def __init__(self, model_np, cfg_sim, device):
         self.cfg = cfg_sim
@@ -234,7 +378,7 @@ class MegaPhysics:
         self.lp_const = np.concatenate(
             [self.lp_corner, self.lp_dst_pos, self.lp_dst_quat, self.lp_dst_size], axis=1
         ).astype(np.float32)
-        lc = np.zeros((self.K, self.LANE_CONST_COLS), np.float32)
+        lc = np.zeros((self.K, self.LANE_GEOM_COLS), np.float32)
         lc[: self.Kf, 0:3] = self.lf_corner
         lc[self.Kf : self.Kf + self.Kp, 0:13] = self.lp_const
         lc[self.Kf + self.Kp :, 0:10] = self.ep_a
@@ -242,16 +386,24 @@ class MegaPhysics:
         lc[:, 20] = self.lane_fric
         lc[:, 21] = self.lane_beta
         self.lane_const = lc
-        self.lane_part, self.part_ent, self.part_off, self.part_nfloor = lane_lists(
+        self.part_ent, self.part_off, self.part_nfloor = lane_lists(
             self.part_a, self.part_b, self.Kf, P
         )
-        self._dev = {
-            name: torch.as_tensor(getattr(self, name), device=self.device)
-            for name in (
-                "part_const", "lane_const", "lane_part",
-                "part_off", "part_nfloor", "part_ent",
-            )
-        }
+        # the same tables in slot order, for the kernel
+        self.lane_kind = np.concatenate([
+            np.full(self.Kf, KIND_FLOOR), np.full(self.Kp, KIND_VERTEX),
+            np.full(self.Ke, KIND_SAT),
+        ])
+        self.slots = slot_tables(
+            self.part_a, self.part_b, self.lane_kind, lc,
+            np.concatenate([np.zeros(self.Kf + self.Kp, int), np.arange(self.Ke)]),
+            np.zeros(self.K, int), self.Kf, self.Ke, P, THREADS, SEGMENT,
+        )
+        self._dev = {"part_const": torch.as_tensor(pc, device=self.device)}
+        self._dev.update(
+            (name, torch.as_tensor(self.slots[name], device=self.device).contiguous())
+            for name in SLOT_TABLES
+        )
         # the plain version of *this* kernel: warm-started in every mode
         self._plain = make_substep(
             model_np, dataclasses.replace(cfg_sim, use_pallas="off"), self.device
@@ -274,16 +426,65 @@ class MegaPhysics:
         raise RuntimeError(f"no free-part physics for device {parts.pos.device}")
 
     def lane_buffer(self):
-        """(floats per lane, shared bytes, lanes in shared memory?)."""
+        """How the kernel holds this model: ``(floats per lane kept in memory,
+        dynamic shared bytes a block, working set in shared memory?, one lane
+        per thread with its working set in registers?)``."""
         lib = library()
-        nf, pf = lib.mega_lane_floats(), lib.mega_part_floats()
-        part_bytes = 4 * (pf * self.P + self.P)
-        lane_bytes = 4 * nf * self.K
-        in_smem = part_bytes + lane_bytes <= MAX_SMEM
-        return nf, part_bytes + (lane_bytes if in_smem else 0), in_smem
+        regs = self.slots["lpt"] == 1
+        nf, ncol = lib.mega_lane_floats(int(regs)), lib.mega_sum_columns()
+        fixed = 4 * lib.mega_fixed_words(
+            self.P, self.Kf, self.Ke, self.slots["KS"], int(self.slots["b_off"][-1]),
+            int(regs), THREADS,
+        )
+        lane_bytes = 4 * self._scratch_floats(nf, ncol)
+        in_smem = fixed + lane_bytes <= MAX_SMEM
+        return nf, fixed + (lane_bytes if in_smem else 0), in_smem, regs
+
+    # -- what the latency floor is worked out from ------------------------------
+
+    def resident_blocks(self) -> int:
+        """Blocks of the kernel an SM holds for this model (from the
+        registers, the block size and the shared memory of the build)."""
+        _, smem, in_smem, regs = self.lane_buffer()
+        n = library().mega_resident_blocks(int(regs), int(not in_smem), THREADS, smem)
+        if n <= 0:
+            raise RuntimeError("the occupancy query of megakernel.cu failed")
+        return n
+
+    def barrier_probe(self, blocks: int, n: int) -> None:
+        """Launch ``blocks`` blocks of the kernel's size and shared memory
+        that pass ``n`` bare block barriers: timed, a launch over ``n`` is a
+        barrier's round trip at that occupancy. Not counted in ``launches``."""
+        smem = self.lane_buffer()[1]
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = library().mega_barrier_probe(int(blocks), THREADS, smem, int(n),
+                                               ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError("barrier probe failed: " + library().mega_error_string(err).decode())
+
+    def _scratch_floats(self, nf: int, ncol: int) -> int:
+        """Floats of an env's b-side buffer and lane working set."""
+        return ncol * int(self.slots["b_off"][-1]) + nf * self.slots["KS"]
 
     def kernel_substeps(self, parts: PartState, group, gscale, n: int) -> PartState:
         """One launch of the CUDA kernel; raises on anything it cannot take."""
+        out, _ = self._launch((), parts, group, gscale, n)
+        self.launches += 1
+        return out
+
+    def phase_clocks(self, parts: PartState, group, gscale, n: int):
+        """Clock cycles per phase of the substep loop, ``[B, phases]`` int64:
+        one launch of the phase-clock build of the kernel (the same source
+        with ``-DFT_PHASE_CLOCKS``), in which thread 0 of each block adds up
+        the card's clock between barriers and, in the last column, counts
+        the block barriers the loop passed. A measuring aid: its results are
+        not used and it is not counted in ``launches``."""
+        return self._launch(_cuda.PHASE_CLOCKS, parts, group, gscale, n)[1]
+
+    def _launch(self, defines, parts: PartState, group, gscale, n: int):
+        """Check the inputs, then launch the build of the kernel with
+        ``defines``: ``(result, phase clocks or None)``."""
         B, P = parts.pos.shape[:2]
         dev = parts.pos.device
         want = {
@@ -294,21 +495,16 @@ class MegaPhysics:
             "group": (group, (B, P), torch.int32),
             "gscale": (gscale, (B, P), torch.float32),
         }
-        for name, (t, shape, dtype) in want.items():
-            if t.device != dev or t.device.type != "cuda":
-                raise ValueError(f"{name} must be a CUDA tensor on {dev}, got {t.device}")
-            if tuple(t.shape) != shape or t.dtype != dtype:
-                raise ValueError(f"{name}: want {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
+        check_inputs(want, dev)
         if P != self.P:
             raise ValueError(f"model has {self.P} parts, state has {P}")
         if dev != self.device:
             raise ValueError(f"tables live on {self.device}, state on {dev}")
-        lib = library()
-        if lib.mega_lane_const_cols() != self.LANE_CONST_COLS:
-            raise RuntimeError("megakernel.cu lane-constant layout changed")
-        nf, smem, in_smem = self.lane_buffer()
+        lib = library(defines)
+        clocks = None
+        if defines == _cuda.PHASE_CLOCKS:
+            clocks = torch.zeros((B, lib.mega_num_phases()), dtype=torch.int64, device=dev)
+        nf, smem, in_smem, regs = self.lane_buffer()
         out = PartState(
             pos=torch.empty_like(parts.pos),
             quat=torch.empty_like(parts.quat),
@@ -316,9 +512,11 @@ class MegaPhysics:
             ang_vel=torch.empty_like(parts.ang_vel),
         )
         scratch = None if in_smem else torch.empty(
-            (B, nf * self.K), dtype=torch.float32, device=dev
+            (B, self._scratch_floats(nf, lib.mega_sum_columns())), dtype=torch.float32,
+            device=dev,
         )
         d = self._dev
+        sl = self.slots
         cfg = self.cfg
         ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
         with torch.cuda.device(dev):
@@ -327,29 +525,33 @@ class MegaPhysics:
                 ptr(parts.pos), ptr(parts.quat), ptr(parts.lin_vel), ptr(parts.ang_vel),
                 ptr(group), ptr(gscale),
                 ptr(out.pos), ptr(out.quat), ptr(out.lin_vel), ptr(out.ang_vel),
-                ptr(d["part_const"]), ptr(d["lane_const"]), ptr(d["lane_part"]),
-                ptr(d["part_off"]), ptr(d["part_nfloor"]), ptr(d["part_ent"]),
-                ptr(scratch),
-                B, P, self.Kf, self.Kp, self.Ke, int(n), int(cfg.solver_iters),
+                ptr(d["part_const"]), *(ptr(d[name]) for name in SLOT_TABLES),
+                ptr(scratch), ptr(clocks),
+                B, P, sl["KS"], sl["lpt"], int(sl["b_off"][-1]), self.Kf, self.Ke,
+                int(n), int(cfg.solver_iters),
                 float(cfg.timestep), float(cfg.timestep * cfg.gravity),
                 float(cfg.contact_slop), float(cfg.relaxation), float(cfg.max_velocity),
-                THREADS, smem, ctypes.c_void_p(stream),
+                THREADS, smem, int(regs), ctypes.c_void_p(stream),
             )
         if err != 0:
             raise RuntimeError(
                 "megakernel launch failed: " + lib.mega_error_string(err).decode()
             )
-        self.launches += 1
-        return out
+        return out, clocks
 
     # -- work model (for the roofline bound) -----------------------------------
 
     def fp32_ops_per_env(self, n: int) -> int:
-        """FP32 operations one env's block performs in a launch of ``n``
-        substeps, counted from ``csrc/megakernel.cu`` (each add, multiply,
-        min/max, compare, divide, square root, sin and cos counts one;
-        index arithmetic does not). The count does not depend on the data:
-        every lane runs every phase whatever its mask."""
+        """FP32 operations of the *function* for one env in a launch of ``n``
+        substeps, as ``engine.py`` does it: per solver pass one impulse
+        application per (lane, side) entry of the per-part lists and one
+        lambda update per lane (each add, multiply, min/max, compare, divide,
+        square root, sin and cos counts one; index arithmetic does not).
+        This is the yardstick of the roofline bound and does not follow the
+        kernel's layout: a redesign of ``csrc/megakernel.cu`` that shares
+        work between entries changes the kernel's time, not this count. The
+        count does not depend on the data: every lane runs every phase
+        whatever its mask."""
         P, Kf, Kp, Ke, K = self.P, self.Kf, self.Kp, self.Ke, self.K
         E = len(self.part_ent)                   # (lane, side) entries
         Eb = E - K                               # side-b entries
@@ -372,7 +574,7 @@ class MegaPhysics:
         return int(n * per_substep)
 
 
-# FP32 operations of the kernel's pieces, counted from csrc/megakernel.cu
+# FP32 operations of the function's pieces (see MegaPhysics.fp32_ops_per_env)
 CROSS = 9                     # 6 multiplies, 3 subtracts
 QROT = 2 * CROSS + 3 * 4      # u x v, u x (u x v), v + 2 (w uv + uuv)
 QMUL = 28

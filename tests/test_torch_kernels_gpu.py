@@ -43,11 +43,54 @@ def test_free_part_kernel_matches_plain(name):
     for group in (free, welded):
         ref = phys.plain_substeps(state.parts, group, gscale, 5)
         out = phys.kernel_substeps(state.parts, group, gscale, 5)
+        again = phys.kernel_substeps(state.parts, group, gscale, 5)
         torch.cuda.synchronize()
-        for f, a, b in zip(ref._fields, ref, out):
+        for f, a, b, c in zip(ref._fields, ref, out, again):
             err = (a - b).abs().max().item()
             assert err < 1e-4, (f, err)
-    assert phys.launches == launches + 2
+            assert torch.equal(b, c), f      # the sums are taken in a fixed order
+    assert phys.launches == launches + 4
+
+
+@pytest.mark.gpu
+def test_free_part_kernel_welded_by_connect():
+    """table_lack with two recipe steps preassembled (a group of three parts
+    beside two free ones), parts dropped onto the floor and pushed: n = 5
+    within 1e-4 and n = 50 within 1e-3 of the plain version (TF32 off), two
+    launches bit-identical, and the phase-clock build of the same source
+    gives the same result and a clock count for every phase."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = CursorEnv(EnvConfig(preassembled=(0, 1)), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    B, P = 32, env._P
+    state = env.reset_batch(B, gen)
+    assert len(set(state.group[0].tolist())) < P
+    phys = env.physics
+    gscale = torch.ones((B, P), device="cuda")
+    parts = phys.plain_substeps(state.parts, state.group, gscale, 50)
+    parts = parts._replace(lin_vel=parts.lin_vel + 0.05, ang_vel=parts.ang_vel + 0.1)
+    parts = PartState(*(t.contiguous() for t in parts))
+    for n, tol in ((5, 1e-4), (50, 1e-3)):
+        ref = phys.plain_substeps(parts, state.group, gscale, n)
+        out = phys.kernel_substeps(parts, state.group, gscale, n)
+        again = phys.kernel_substeps(parts, state.group, gscale, n)
+        torch.cuda.synchronize()
+        for f, a, b, c in zip(ref._fields, ref, out, again):
+            assert (a - b).abs().max().item() < tol, (f, n)
+            assert torch.equal(b, c), (f, n)
+    launches = phys.launches
+    clocks = phys.phase_clocks(parts, state.group, gscale, 5)
+    torch.cuda.synchronize()
+    assert phys.launches == launches           # a measuring aid, not a launch of the path
+    assert clocks.shape[0] == B and bool((clocks[:, :6] > 0).all())
+    # the last column counts the block barriers of the substep loop: after the
+    # frames, after the narrow phase, after the lane half of each of the 13
+    # passes and after the group half of all but the last, 5 substeps
+    assert bool((clocks[:, -1] == 5 * 27).all())
+    assert phys.resident_blocks() >= 1
 
 
 @pytest.mark.gpu
@@ -90,12 +133,68 @@ def test_arm_kernel_matches_plain(agent):
         )
         ref = ph.plain_control_step(*args)
         out = ph.kernel_control_step(*args)
+        again = ph.kernel_control_step(*args)
         torch.cuda.synchronize()
         for a, b in list(zip(ref[0], out[0])) + [(ref[1], out[1]), (ref[2], out[2])]:
             assert (a - b).abs().max().item() < 5e-4
         assert torch.equal(ref[3], out[3])
         assert bool(out[3].any()) == want_touch
-    assert ph.launches == launches + 2
+        # the sums are taken in a fixed order: a repeated launch gives the same bits
+        for b, c in zip(list(out[0]) + list(out[1:]), list(again[0]) + list(again[1:])):
+            assert torch.equal(b, c)
+    assert ph.launches == launches + 4
+
+
+@pytest.mark.gpu
+def test_arm_kernel_welded_group():
+    """Sawyer over table_lack with two recipe steps preassembled (a welded
+    group of three parts), part 0 on the left fingertip and the gripper
+    closing: one substep within 5e-4 of the plain version in every env (TF32
+    off), touch flags equal and set, two launches bit-identical; the
+    phase-clock build counts every phase."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    env = ArmEnv(EnvConfig(agent_type="Sawyer", control_type="impedance", preassembled=(0, 1)),
+                 device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    B = 32
+    st = env.reset_batch(B, gen)
+    assert len(set(st.group[0].tolist())) < env._P
+    tip = K.geom_world(env.robot, K.fk(env.robot, st.qpos))[0][
+        :, int(env.robot.finger_geoms_l[env.arms[0]][-1])
+    ]
+    pos = st.parts.pos.clone()
+    pos[:, 0] = tip + torch.tensor([0.004, 0.003, 0.002], device=dev)
+    st = st._replace(parts=st.parts._replace(pos=pos))
+    act = torch.rand((B, env.dof), generator=gen, device=dev) * 2 - 1
+    act[:, -1 - env.n_arms : -1] = -1.0
+    ctrl = env._direct_ctrl(act[:, :-1])
+    ph = env.physics
+    G1, G2 = K.joint_dyn_matrices(env.robot, st.qpos, env.config.sim.timestep)
+    args = (
+        PartState(*(t.contiguous() for t in st.parts)), st.group,
+        torch.ones((B, env._P), device=dev), st.qpos, st.qvel, ctrl,
+        torch.zeros((B, env.robot.nj), device=dev), G1.contiguous(), G2.contiguous(), 1,
+    )
+    ref = ph.plain_control_step(*args)
+    out = ph.kernel_control_step(*args)
+    again = ph.kernel_control_step(*args)
+    torch.cuda.synchronize()
+    for a, b in list(zip(ref[0], out[0])) + [(ref[1], out[1]), (ref[2], out[2])]:
+        assert (a - b).abs().max().item() < 5e-4
+    assert torch.equal(ref[3], out[3]) and bool(out[3].any())
+    for b, c in zip(list(out[0]) + list(out[1:]), list(again[0]) + list(again[1:])):
+        assert torch.equal(b, c)
+    clocks = ph.phase_clocks(*args)
+    torch.cuda.synchronize()
+    assert clocks.shape[0] == B and bool((clocks[:, :6] > 0).all())
+    # barriers of the loop: the free-part kernel's 27 a substep, one after
+    # the hand-geom forces, and the one after the last joint update
+    assert bool((clocks[:, -1] == 28 + 1).all())
+    assert ph.resident_blocks() >= 1
 
 
 @pytest.mark.gpu
