@@ -9,8 +9,8 @@ package is imported) on the card:
    checkout (one ``nvcc`` per source, started together: the free-part
    kernel ``megakernel.cu`` and the arm kernel ``arm_megakernel.cu``, both
    on the shared header ``physics_common.cuh``, and the lane solver
-   ``lane_solver.cu``; beside them the phase-clock builds of the two
-   physics kernels, the same sources with ``-DFT_PHASE_CLOCKS``) and prints
+   ``lane_solver.cu``; beside them the phase-clock builds of all three,
+   the same sources with ``-DFT_PHASE_CLOCKS``: six at once) and prints
    the ``-Xptxas -v`` report;
 2. kernel vs plain: each kernel against its plain PyTorch version on the
    card, TF32 off, at the shapes the main paths give it.
@@ -41,14 +41,19 @@ package is imported) on the card:
    noise of 1e-7 and 1e-6, all printed. Touch flags must be equal, and set
    where the part is gripped. Two launches on one input must agree bit for
    bit.
-   Lane solver (B=256), on contacts taken from real states: table_lack
-   (K = 210) and chair_balser_0115 (K = 4153, P = 8) from a reset dropped
-   onto the floor, and table_lack with two recipe steps preassembled (welded
-   groups), each with part velocities of 0.1 m/s: ``solve_contacts_lane`` on
-   the card against ``plain_solve_contacts_lane`` on the card at 12 and 24
-   sweeps within 1e-4 on both velocities; two launches on one input must
-   agree bit for bit; the gap to ``engine._solve_contacts`` started cold
-   is printed and held to 2e-3 (linear) and 5e-3 (angular) with rtol 1e-3;
+   Lane solver (B=256; one launch from the raw contacts to the
+   velocities), on contacts taken from real states: table_lack (K = 210)
+   with a leg laid on the table top and chair_balser_0115 (K = 4153, P = 8;
+   the global-scratch route) from a reset dropped onto the floor, table_lack
+   with two recipe steps preassembled (welded groups), each with part
+   velocities of 0.1 m/s; the leg case also through the global-scratch
+   route, with a non-zero ``vel_b``
+   (kinematic lanes), and with every lane masked (the velocities must come
+   back exactly): ``solve_contacts_lane`` on the card against
+   ``plain_solve_contacts_lane`` on the card at 12 and 24 sweeps within
+   1e-4 on both velocities; two launches on one input must agree bit for
+   bit; the gap to ``engine._solve_contacts`` started cold is printed and
+   held to 2e-3 (linear) and 5e-3 (angular) with rtol 1e-3;
 3. main paths, each with the launch counts set to 0 before it and read
    after it: ``make_vec_env("IKEACursor-v0", num_envs=4096)``, reset and 10
    steps of uniform random actions; ``make_vec_env("IKEASawyer-v0",
@@ -84,10 +89,12 @@ package is imported) on the card:
    with parts welded (table_lack with two recipe steps preassembled) beside
    the free case, both at B = 4096, n = 50; for the Sawyer
    step also ``joint_dyn_matrices`` and the IK solve; the lane solver's ms
-   per launch at B = 4096, K = 210, 12 sweeps, beside its wrapper (with the
-   preparation in PyTorch), its plain version and ``engine._solve_contacts``
-   at the same shape; the lane path's step, MPPI plans/s on each backend and
-   the ``position_orientation`` step with the controller's share.
+   per launch at B = 4096, K = 210, 12 sweeps and with every lane forced
+   into contact, beside ``solve_contacts_lane`` as a whole, its plain version and
+   ``engine._solve_contacts`` at the same shape, its blocks an SM, latency
+   floor and phase shares (``[time] lane phases:``); the lane path's step,
+   MPPI plans/s on each backend and the ``position_orientation`` step with
+   the controller's share.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -125,6 +132,7 @@ PREV_ARM_KERNEL_MS = 19.89
 # phases of a substep as the phase-clock builds count them
 MEGA_PHASES = ("frames+aggregates", "narrow phase+prep", "first pass (gates+counts+warm start)",
                "passes: group half", "passes: lane half", "integration+floor")
+LANE_PHASES = ("loads", "preparation+counts", "sweeps: lane half", "sweeps: group half")
 ARM_PHASES = ("joint update+chain+hand geoms | held clamp+frames+aggregates", "narrow phase+prep",
               "first pass (gates+counts+warm start | servo gates+actuators)",
               "passes: group half", "passes: lane half", "integration+floor+hand-geom forces")
@@ -265,7 +273,7 @@ def main() -> None:
     stamp("build")
     t0 = time.perf_counter()
     sources = [megakernel.SOURCE, arm_megakernel.SOURCE, lane_solver.SOURCE]
-    builds = [(s, ()) for s in sources] + [(s, _cuda.PHASE_CLOCKS) for s in sources[:2]]
+    builds = [(s, ()) for s in sources] + [(s, _cuda.PHASE_CLOCKS) for s in sources]
     procs = [_cuda.start_build(s, d) for s, d in builds]
     for p in procs:
         _cuda.finish_build(p)
@@ -280,6 +288,7 @@ def main() -> None:
     lane_solver.library()
     megakernel.library(_cuda.PHASE_CLOCKS)
     arm_megakernel.library(_cuda.PHASE_CLOCKS)
+    lane_solver.library(_cuda.PHASE_CLOCKS)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
 
     # -- 2. kernel vs plain -------------------------------------------------------
@@ -559,29 +568,40 @@ def main() -> None:
         parts = parts._replace(lin_vel=parts.lin_vel + push, ang_vel=parts.ang_vel + 0.1)
         return env, st.group, env.physics.solver_args(parts, st.group, ones)
 
-    for tag, name, stack, cfg in (
-        ("table_lack_0825 leg on table top", "table_lack_0825", True, {}),
-        ("chair_balser_0115", "chair_balser_0115", False, {}),
-        ("table_lack_0825 welded-by-connect", "table_lack_0825", False, {"preassembled": (0, 1)}),
-    ):
-        env, group, args = lane_args(name, stack, **cfg)
+    def hold_lane(tag, tables, args, route=None, exact=False):
+        """The kernel (``solve_contacts_lane`` with the model's ``tables``,
+        or one launch of ``route``'s tables) against the plain version at 12
+        and 24 sweeps within 1e-4, two launches bit-identical, held to the
+        cold ``engine._solve_contacts``; ``exact``: no lane has a contact,
+        so the velocities come back as they went in."""
+        nonlocal lane_worst
         c = args[0]
+        B_, P_ = args[1].shape
         n_lanes = c.depth.shape[1]
+        if route is not None:
+            tables = lane_solver.LaneTables.of(c, P_, route)
         live = c.mask & (c.depth > -args[10])
         active = int(live.sum())
         active_b = int((live & (c.part_b >= 0)).sum())
-        smem, in_smem = lane_solver.work_buffer(env._P, n_lanes)
-        print(f"[check] lane {tag}: P={env._P} K={n_lanes}, {active} active lanes in {CHECK_B} envs ({active_b} between parts), "
-              f"groups {group[0].tolist()}, work buffer in "
-              f"{'shared memory' if in_smem else 'global scratch'} ({smem} B shared/block)")
-        if active == 0 or (stack and active_b == 0):
-            fail(f"lane {tag}: no active contact lane")
+        print(f"[check] lane {tag}: P={P_} K={n_lanes} slots {tables.KS} ({tables.lpt} a thread), route "
+              f"{lane_solver.ROUTE_NAMES[tables.route]}, {tables.smem_bytes()} B shared/block, "
+              f"{tables.resident_blocks()} blocks an SM, {active} active lanes in {B_} envs "
+              f"({active_b} between parts), groups {args[1][0].tolist()}"
+              f"{', vel_b set' if c.vel_b is not None else ''}")
+        if exact != (active == 0):
+            fail(f"lane {tag}: {active} active contact lanes")
+
+        def solve(a):
+            if route is None:
+                return lane_solver.solve_contacts_lane(*a, tables=tables)
+            return lane_solver.launch(tables, *a)[:2]
+
         for iters in (12, 24):
             a = args[:8] + (iters,) + args[9:]
-            lv, av = lane_solver.solve_contacts_lane(*a)
-            lv2, av2 = lane_solver.solve_contacts_lane(*a)
+            lv, av = solve(a)
+            lv2, av2 = solve(a)
             rl, ra = lane_solver.plain_solve_contacts_lane(*a)
-            wl, wa, _, _ = engine._solve_contacts(*a, torch.zeros((CHECK_B, n_lanes, 3), device=dev))
+            wl, wa, _, _ = engine._solve_contacts(*a, torch.zeros((B_, n_lanes, 3), device=dev))
             torch.cuda.synchronize()
             if not (torch.isfinite(lv).all() and torch.isfinite(av).all()):
                 fail(f"lane {tag} iters={iters}: kernel output not finite")
@@ -596,14 +616,39 @@ def main() -> None:
                   flush=True)
             if not max(e_l, e_a) <= 1e-4:
                 fail(f"lane {tag} iters={iters}: kernel disagrees with its plain version")
-            if not moved > 1e-3:
+            if exact:
+                if not (torch.equal(lv, a[5]) and torch.equal(av, a[6])):
+                    fail(f"lane {tag} iters={iters}: no lane has a contact, yet the velocities moved")
+            elif not moved > 1e-3:
                 fail(f"lane {tag} iters={iters}: the solve changed nothing")
             if not ((lv - wl).abs() <= 2e-3 + 1e-3 * wl.abs()).all() or not (
                 (av - wa).abs() <= 5e-3 + 1e-3 * wa.abs()
             ).all():
                 fail(f"lane {tag} iters={iters}: kernel and cold engine._solve_contacts disagree")
             lane_worst = max(lane_worst, e_l, e_a)
-            lane_cold_gap = [max(lane_cold_gap[0], g_l), max(lane_cold_gap[1], g_a)]
+            lane_cold_gap[0] = max(lane_cold_gap[0], g_l)
+            lane_cold_gap[1] = max(lane_cold_gap[1], g_a)
+
+    for tag, name, stack, cfg in (
+        ("table_lack_0825 leg on table top", "table_lack_0825", True, {}),
+        ("chair_balser_0115", "chair_balser_0115", False, {}),
+        ("table_lack_0825 welded-by-connect", "table_lack_0825", False, {"preassembled": (0, 1)}),
+    ):
+        env, group, args = lane_args(name, stack, **cfg)
+        if stack and not bool((args[0].mask & (args[0].part_b >= 0)).any()):
+            fail(f"lane {tag}: no contact between parts")
+        tables = env.physics.lane_tables
+        hold_lane(tag, tables, args)
+        if stack:
+            c = args[0]
+            route = lane_solver.ROUTE_MEMORY
+            hold_lane(f"{tag}, {lane_solver.ROUTE_NAMES[route]}", tables, args, route)
+            # kinematic lanes: a prescribed b-side velocity on every lane
+            gen.manual_seed(4)
+            vel_b = torch.randn(c.point.shape, generator=gen, device=dev) * 0.05
+            hold_lane(f"{tag}, vel_b", tables, (c._replace(vel_b=vel_b),) + args[1:])
+            hold_lane(f"{tag}, every lane masked", tables,
+                      (c._replace(mask=torch.zeros_like(c.mask)),) + args[1:], exact=True)
 
     # -- 3. main path -----------------------------------------------------------
     stamp("cursor main path")
@@ -1067,38 +1112,64 @@ def main() -> None:
     largs = lenv.physics.solver_args(lparts, lgroup, torch.ones((MAIN_B, lenv._P), device=dev))
     lc = largs[0]
     LK, LP, liters = lc.depth.shape[1], lenv._P, largs[8]
-    packed = lane_solver.kernel_inputs(*largs[:5], largs[7], largs[9], largs[10])
-    tail = (lgroup, largs[3], largs[4], largs[5], largs[6], liters)
-    lane_solver.launch_packed(*packed, *tail)  # warm-up
-    lane_kernel_ms = cuda_ms(lambda: lane_solver.launch_packed(*packed, *tail), 20)
-    lane_wrapper_ms = cuda_ms(lambda: lane_solver.solve_contacts_lane(*largs), 10)
+    # the kernel alone on the path's own tables, then with every lane forced
+    # into contact
+    ltables = lenv.physics.lane_tables
+    lane_solver.launch(ltables, *largs)  # warm-up
+    lane_kernel_ms = cuda_ms(lambda: lane_solver.launch(ltables, *largs), 50)
+    full = (lc._replace(mask=torch.ones_like(lc.mask), depth=lc.depth.abs() + 1e-3),) + largs[1:]
+    lane_solver.launch(ltables, *full)  # warm-up
+    lane_full_ms = cuda_ms(lambda: lane_solver.launch(ltables, *full), 50)
+    lane_solver.solve_contacts_lane(*largs, tables=ltables)  # warm-up
+    lane_wrapper_ms = cuda_ms(lambda: lane_solver.solve_contacts_lane(*largs, tables=ltables), 50)
     lane_plain_ms = cuda_ms(lambda: lane_solver.plain_solve_contacts_lane(*largs), 3)
     zeros_lam = torch.zeros((MAIN_B, LK, 3), device=dev)
     warm_solver_ms = cuda_ms(lambda: engine._solve_contacts(*largs, zeros_lam), 3)
     K_b = int((lc.part_b >= 0).sum())
-    # (lane side, member part) pairs phase B adds up, from this run's groups
-    gsize = (lgroup[:, :, None] == lgroup[:, None, :]).sum(-1).to(torch.float32)   # [B,P]
-    pb_safe = lc.part_b.clamp(min=0)
-    entries = (gsize[:, lc.part_a].sum(-1)
-               + (gsize[:, pb_safe] * (lc.part_b >= 0)).sum(-1)).mean().item()
-    l_ops = lane_solver.fp32_ops_per_env(LK, K_b, LP, liters, entries) * MAIN_B
-    l_bytes = lane_solver.bytes_per_env(LK, LP) * MAIN_B + 2 * 4 * LK
+    live = lc.mask & (lc.depth > -largs[10])
+    mask_env = lc.mask.sum(-1).tolist()
+    act_env = live.sum(-1).tolist()
+    actb_env = (live & (lc.part_b >= 0)).sum(-1).tolist()
+    n_masked, n_active, n_active_b = sum(mask_env), sum(act_env), sum(actb_env)
+    # the work this run's data needs, env by env: the preparation and sweeps
+    # of the lanes with a contact; every lane's mask, the depth of those with
+    # the mask set, point and normal of those with a contact
+    l_ops = sum(lane_solver.fp32_ops_per_env(LK, K_b, LP, liters, a, ab)
+                for a, ab in zip(act_env, actb_env))
+    l_ops_all = lane_solver.fp32_ops_per_env(LK, K_b, LP, liters) * MAIN_B
+    l_bytes = sum(lane_solver.bytes_per_env(LK, LP, m, a) for m, a in zip(mask_env, act_env)) \
+        + ltables.table_bytes()
+    l_bytes_all = lane_solver.bytes_per_env(LK, LP) * MAIN_B + ltables.table_bytes()
     l_t_ops = l_ops / PEAK_FP32_FLOPS * 1e3
     l_t_bytes = l_bytes / PEAK_HBM_BYTES * 1e3
     lane_bound_ms = max(l_t_ops, l_t_bytes)
     lane_bound_by = "operations" if l_t_ops >= l_t_bytes else "bytes"
-    n_active = int((lc.mask & (lc.depth > -largs[10])).sum())
+    l_t_ops_all = l_ops_all / PEAK_FP32_FLOPS * 1e3
+    lane_clocks = lane_solver.phase_clocks(ltables, *largs)
+    lane_floor_ms, lane_resident, lane_barriers, lane_trip_us = latency_floor(ltables, lane_clocks,
+                                                                             sm_count)
+    lane_shares, lane_cycles = phase_shares(lane_clocks, LANE_PHASES, 1)
     print(f"[time] lane path step_batch B={MAIN_B}: {lane_step_ms:.3f} ms/step, "
           f"{lane_steps_per_s:.1f} env steps/s ({lenv.config.n_substeps + 1} lane-solver launches a step)")
-    print(f"[time] lane solver B={MAIN_B} K={LK} P={LP} sweeps={liters} ({n_active} active lanes): kernel "
-          f"{lane_kernel_ms:.4f} ms/launch; wrapper with the PyTorch preparation {lane_wrapper_ms:.3f} ms; "
-          f"plain version {lane_plain_ms:.3f} ms; engine._solve_contacts (the solve the lane path "
-          f"replaces) {warm_solver_ms:.3f} ms")
-    print(f"[time] lane bound: {l_ops:.4g} FP32 ops -> {l_t_ops:.4f} ms at {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s; "
-          f"{l_bytes} B -> {l_t_bytes:.4f} ms at {PEAK_HBM_BYTES / 1e12:g} TB/s; bound by {lane_bound_by} "
-          f"({lane_bound_ms / scale:.4f} ms scaled to {watts:g} W); kernel at "
+    print(f"[time] lane solver B={MAIN_B} K={LK} P={LP} sweeps={liters} ({n_masked} lanes with the mask "
+          f"set, {n_active} with a contact, {n_active_b} of them between parts): kernel "
+          f"{lane_kernel_ms:.4f} ms/launch (route {lane_solver.ROUTE_NAMES[ltables.route]}); "
+          f"every lane in contact {lane_full_ms:.4f} ms; solve_contacts_lane on the card "
+          f"{lane_wrapper_ms:.4f} ms; plain version {lane_plain_ms:.3f} ms; engine._solve_contacts "
+          f"(the solve the lane path replaces) {warm_solver_ms:.3f} ms")
+    print(f"[time] lane bound: {l_ops:.4g} FP32 ops -> {l_t_ops:.5f} ms at {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s "
+          f"(every lane in contact: {l_ops_all:.4g} ops, {l_t_ops_all:.5f} ms, {l_bytes_all} B, "
+          f"{l_bytes_all / PEAK_HBM_BYTES * 1e3:.5f} ms); {l_bytes} B -> "
+          f"{l_t_bytes:.5f} ms at {PEAK_HBM_BYTES / 1e12:g} TB/s; bound by {lane_bound_by} "
+          f"({lane_bound_ms / scale:.5f} ms scaled to {watts:g} W); kernel at "
           f"{lane_bound_ms / lane_kernel_ms:.4f} of its bound")
-    print("[time] lane library_ms: null (no single PyTorch call computes the sweeps)")
+    print(f"[time] lane kernel latency floor: {lane_barriers} block barriers counted in a launch of "
+          f"{liters} sweeps x {-(-MAIN_B // (lane_resident * sm_count))} waves ({lane_resident} blocks an "
+          f"SM x {sm_count} SMs) x {lane_trip_us:.4f} us a bare barrier at that occupancy = "
+          f"{lane_floor_ms:.4f} ms (bound {lane_bound_ms:.5f} ms, kernel {lane_kernel_ms:.4f} ms)")
+    print("[time] lane phases: " + ", ".join(f"{k} {v:.3f}" for k, v in zip(LANE_PHASES, lane_shares))
+          + f" | {lane_cycles:.0f} cycles a launch a block")
+    print("[time] lane library_ms: null (no single PyTorch call computes the solve)")
     print(f"[time] MPPI horizon {mcfg.horizon} x {mcfg.n_samples}: default backend "
           f"{1.0 / min(mppi_s[1:]):.3f} plans/s (best of plans 2 and 3; first {mppi_s[0]:.3f} s), "
           f"lane backend {1.0 / lane_plan_s:.3f} plans/s (one plan); CEM iteration {cem_s:.3f} s")
@@ -1198,7 +1269,7 @@ def main() -> None:
         "name": "lane_solver",
         "route": "cuda",
         "source": "furniture_tpu_torch/physics/csrc/lane_solver.cu",
-        "replaces": "furniture_tpu/physics/pallas_solver.py:51",
+        "replaces": "furniture_tpu/physics/pallas_solver.py:165",
         "launches": lane_launches + mppi_lane_launches,
         "max_abs_err": lane_worst,
         "ms": lane_kernel_ms,
@@ -1207,6 +1278,13 @@ def main() -> None:
         "bound_by": lane_bound_by,
         "library_ms": None,
         "bound_ms_at_power_limit": lane_bound_ms / scale,
+        "latency_floor_ms": lane_floor_ms,
+        "barriers_per_launch": lane_barriers,
+        "resident_blocks_per_sm": lane_resident,
+        "phase_shares": dict(zip(LANE_PHASES, lane_shares)),
+        "every_lane_in_contact_ms": lane_full_ms,
+        "lanes_with_contact": n_active,
+        "lanes_with_mask_set": n_masked,
         "launches_by_path": {"lane_cursor": lane_launches, "mppi_lane": mppi_lane_launches},
         "wrapper_ms": lane_wrapper_ms,
         "engine_solve_contacts_ms": warm_solver_ms,

@@ -310,8 +310,34 @@ def make_substep(model_np, cfg_sim, device):
     slop = cfg_sim.contact_slop
     NP = len(model_np["_pairs"])
     lane = cfg_sim.use_pallas == "lane"
+
+    def lanes(pos, quat, group):
+        """The floor, pair and SAT lanes of a state."""
+        fc = floor_contacts(tt, pos, quat, slop)
+        pc = pair_contacts(tt, pos, quat, group, slop)
+        B = pos.shape[0]
+        # SAT edge lane for pairs whose corner lanes are all empty
+        ch = (
+            pc.mask[:, : NP * 8].reshape(B, NP, 8).any(-1)
+            | pc.mask[:, NP * 8 :].reshape(B, NP, 8).any(-1)
+        )
+        ec = edge_contacts(tt, pos, quat, group, slop, corner_hit=ch)
+        return concat_contacts(fc, concat_contacts(pc, ec))
+
+    lane_tables = None
     if lane:
-        from .lane_solver import solve_contacts_lane
+        from .lane_solver import LaneTables, solve_contacts_lane
+
+        # the lane kernel's static tables, from the static lane fields (part
+        # indices, friction, beta) of one state's lanes: built here, once,
+        # and passed to every solve, so the step path makes no host copy
+        P = len(model_np["part_mass"])
+        one = lanes(
+            torch.zeros((1, P, 3), device=device),
+            torch.tensor([1.0, 0.0, 0.0, 0.0], device=device).repeat(1, P, 1),
+            torch.arange(P, dtype=torch.int32, device=device)[None],
+        )
+        lane_tables = LaneTables.of(one, P)
 
     def solver_args(state: PartState, group, gravity_scale):
         """The group membership [B,P,P] and the contact solve's arguments
@@ -320,17 +346,7 @@ def make_substep(model_np, cfg_sim, device):
         member, g_com, g_inv_mass, g_inv_inertia = _group_aggregates(pt, state, group)
         lin_vel = state.lin_vel.clone()
         lin_vel[..., 2] = lin_vel[..., 2] + dt * cfg_sim.gravity * gravity_scale
-
-        fc = floor_contacts(tt, state.pos, state.quat, slop)
-        pc = pair_contacts(tt, state.pos, state.quat, group, slop)
-        B = state.pos.shape[0]
-        # SAT edge lane for pairs whose corner lanes are all empty
-        ch = (
-            pc.mask[:, : NP * 8].reshape(B, NP, 8).any(-1)
-            | pc.mask[:, NP * 8 :].reshape(B, NP, 8).any(-1)
-        )
-        ec = edge_contacts(tt, state.pos, state.quat, group, slop, corner_hit=ch)
-        contacts = concat_contacts(fc, concat_contacts(pc, ec))
+        contacts = lanes(state.pos, state.quat, group)
         return member, (
             contacts, group, g_com, g_inv_mass, g_inv_inertia, lin_vel, state.ang_vel,
             dt, cfg_sim.solver_iters, cfg_sim.relaxation, slop,
@@ -356,7 +372,7 @@ def make_substep(model_np, cfg_sim, device):
             ])
 
         if lane and extra_contacts is None:
-            lv, av = solve_contacts_lane(*solve_args)
+            lv, av = solve_contacts_lane(*solve_args, tables=lane_tables)
             lam = imp = None
         else:
             lv, av, lam, imp = _solve_contacts(*solve_args, lam_warm, warm_cap)
@@ -375,6 +391,7 @@ def make_substep(model_np, cfg_sim, device):
     # the lane backend is cold-started: substeps() carries no warm start
     substep.supports_warm = not lane
     substep.tables = tt
+    substep.lane_tables = lane_tables
     substep.solver_args = solver_args
     return substep
 

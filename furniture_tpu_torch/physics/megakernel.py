@@ -113,10 +113,13 @@ class LanePhysics:
     solves its contacts through ``lane_solver.solve_contacts_lane`` (its
     CUDA kernel on CUDA tensors, its plain version on CPU tensors), with no
     warm start carried across substeps. The kernel's launches are counted in
-    ``lane_solver.launches``: one per substep."""
+    ``lane_solver.launches``: one per substep. ``lane_tables`` are the
+    kernel's static tables for this model (``lane_solver.LaneTables``), built
+    once here."""
 
     def __init__(self, model_np, cfg_sim, device):
         self._substep = make_substep(model_np, cfg_sim, torch.device(device))
+        self.lane_tables = self._substep.lane_tables
 
     def solver_args(self, parts: PartState, group, gscale):
         """The arguments ``solve_contacts_lane`` gets in a substep from

@@ -13,7 +13,7 @@ import torch
 from furniture_tpu_torch.config import EnvConfig, SimConfig
 from furniture_tpu_torch.envs.arm import ArmEnv
 from furniture_tpu_torch.envs.cursor import CursorEnv
-from furniture_tpu_torch.physics import lane_solver
+from furniture_tpu_torch.physics import engine, lane_solver
 from furniture_tpu_torch.physics.state import PartState
 from furniture_tpu_torch.robots import kinematics as K
 
@@ -205,7 +205,8 @@ def test_lane_solver_kernel_matches_plain(name):
     pushed along and into it: 12 and 24 sweeps within 1e-4 on both
     velocities, two launches bit-identical, one launch counted per call.
     table_lack (K = 210) keeps a lane per thread in registers,
-    chair_balser_0115 (K = 4153) re-reads its lanes each sweep."""
+    chair_balser_0115 (K = 4153) keeps its prepared lanes in a global
+    scratch buffer."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU form")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -221,11 +222,12 @@ def test_lane_solver_kernel_matches_plain(name):
     parts = parts._replace(lin_vel=parts.lin_vel + push, ang_vel=parts.ang_vel + 0.1)
     args = env.physics.solver_args(parts, st.group, ones)
     assert bool(args[0].mask.any())
+    tables = env.physics.lane_tables
     for iters in (12, 24):
         a = args[:8] + (iters,) + args[9:]
         before = lane_solver.launches
-        lv, av = lane_solver.solve_contacts_lane(*a)
-        lv2, av2 = lane_solver.solve_contacts_lane(*a)
+        lv, av = lane_solver.solve_contacts_lane(*a, tables=tables)
+        lv2, av2 = lane_solver.solve_contacts_lane(*a, tables=tables)
         assert lane_solver.launches == before + 2
         rl, ra = lane_solver.plain_solve_contacts_lane(*a)
         torch.cuda.synchronize()
@@ -234,3 +236,119 @@ def test_lane_solver_kernel_matches_plain(name):
         assert (lv - rl).abs().max().item() < 1e-4
         assert (av - ra).abs().max().item() < 1e-4
         assert (lv - a[5]).abs().max().item() > 1e-3   # the solve did something
+
+
+def _lane_args(dev, B=32, stack=True, **cfg):
+    """Solver arguments of a table_lack reset on the lane backend with leg 0
+    laid on the table top, dropped by 50 substeps, then pushed."""
+    env = CursorEnv(EnvConfig(sim=SimConfig(use_pallas="lane"), **cfg), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    st = env.reset_batch(B, gen)
+    ones = torch.ones((B, env._P), device=dev)
+    parts = st.parts
+    if stack:
+        pos = parts.pos.clone()
+        pos[:, 0] = pos[:, 4] + torch.tensor([0.05, 0.0, 0.02 + 0.015 - 0.002], device=dev)
+        parts = parts._replace(pos=pos)
+    parts = env.physics.substeps(parts, st.group, ones, 50)
+    push = torch.tensor([0.1, 0.1, -0.1], device=dev)
+    parts = parts._replace(lin_vel=parts.lin_vel + push, ang_vel=parts.ang_vel + 0.1)
+    return env, st.group, env.physics.solver_args(parts, st.group, ones)
+
+
+@pytest.mark.gpu
+def test_lane_solver_kernel_cases():
+    """The fused kernel against its plain version at 12 and 24 sweeps within
+    1e-4 (TF32 off), two launches bit-identical: table_lack with a leg on
+    the table top through both routes, with a non-zero ``vel_b`` on
+    every lane (kinematic lanes), with every lane masked (the velocities
+    come back exactly), and table_lack welded by connects
+    (``preassembled=(0, 1)``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    _, _, args = _lane_args(dev)
+    c = args[0]
+    assert bool((c.mask & (c.part_b >= 0)).any())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    vel_b = torch.randn(c.point.shape, generator=gen, device=dev) * 0.05
+    env_w, group_w, args_w = _lane_args(dev, stack=False, preassembled=(0, 1))
+    assert len(set(group_w[0].tolist())) < env_w._P
+    cases = [(args, r) for r in (None, lane_solver.ROUTE_MEMORY)]
+    cases += [((c._replace(vel_b=vel_b),) + args[1:], None), (args_w, None)]
+    masked = (c._replace(mask=torch.zeros_like(c.mask)),) + args[1:]
+    for case, route in cases + [(masked, None)]:
+        tables = lane_solver.LaneTables.of(case[0], case[1].shape[1], route)
+        for iters in (12, 24):
+            a = case[:8] + (iters,) + case[9:]
+            lv, av, _ = lane_solver.launch(tables, *a)
+            lv2, av2, _ = lane_solver.launch(tables, *a)
+            rl, ra = lane_solver.plain_solve_contacts_lane(*a)
+            torch.cuda.synchronize()
+            assert torch.equal(lv, lv2) and torch.equal(av, av2)
+            assert (lv - rl).abs().max().item() < 1e-4, (route, iters)
+            assert (av - ra).abs().max().item() < 1e-4, (route, iters)
+            if case is masked:
+                assert torch.equal(lv, a[5]) and torch.equal(av, a[6])
+            else:
+                assert (lv - a[5]).abs().max().item() > 1e-3
+
+
+@pytest.mark.gpu
+def test_lane_solver_one_launch_no_prep_no_sync(monkeypatch):
+    """On the card ``solve_contacts_lane`` needs the model's tables (it
+    raises without them) and is one launch: it never calls
+    ``engine.lane_prep``, dispatches no PyTorch operation but the two
+    output allocations, and neither it, nor the lane substeps around it,
+    nor a whole ``step_batch`` of the lane path synchronises the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    dev = "cuda"
+    env, group, args = _lane_args(dev)
+    tables = env.physics.lane_tables
+    with pytest.raises(ValueError):                  # the card needs the model's tables
+        lane_solver.solve_contacts_lane(*args)
+    lane_solver.solve_contacts_lane(*args, tables=tables)   # warm-up: the build
+
+    def refuse(*a, **k):
+        raise AssertionError("lane_prep ran on the kernel path")
+
+    monkeypatch.setattr(engine, "lane_prep", refuse)
+    monkeypatch.setattr(lane_solver, "lane_prep", refuse)
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    B, P = group.shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    st = env.reset_batch(B, gen)
+    action = torch.rand((B, 15), generator=gen, device=dev) * 2 - 1
+    env.step_batch(st, action)                      # warm-up of the step's own tables
+    ones = torch.ones((B, P), device=dev)
+    torch.cuda.synchronize()
+    before = lane_solver.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with Ops() as ops:
+            lane_solver.solve_contacts_lane(*args, tables=tables)
+        # the lane backend's substeps: narrow phase, aggregates, the solve,
+        # integration, one launch each; then a whole step of the lane path
+        env.physics.substeps(st.parts, st.group, ones, 3)
+        env.step_batch(st, action)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert lane_solver.launches == before + 1 + 3 + env.config.n_substeps + 1
+    assert len(ops.ops) == 2 and all(op.startswith("aten.empty") for op in ops.ops), ops.ops

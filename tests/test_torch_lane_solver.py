@@ -143,40 +143,71 @@ def test_warm_solver_started_cold_agrees(jax_solved, torch_tables, groups):
 def test_kernel_wrapper_refuses_cpu_tensors(torch_tables):
     """The kernel path takes CUDA tensors only; it never falls back."""
     args = _torch_args(torch_tables, GROUPS["free"])
+    tables = lane_solver.LaneTables.of(args[0], args[1].shape[1])
     before = lane_solver.launches
     with pytest.raises((ValueError, RuntimeError)):
-        lane_solver.kernel_solve_contacts_lane(*args)
+        lane_solver.launch(tables, *args)
     assert lane_solver.launches == before
 
 
-def test_pack_lanes_layout(torch_tables):
-    """The kernel's lane input: [B,25,K], field-major, in the documented
-    order."""
-    args = _torch_args(torch_tables, GROUPS["free"])
-    c = args[0]
-    prep = lane_solver.lane_prep(*args[:5], DT, RELAX, SLOP)
-    lanes = lane_solver.pack_lanes(prep, c)
-    B, K = prep.fmask.shape
-    assert lanes.shape == (B, lane_solver.LANE_FIELDS, K) and lanes.is_contiguous()
-    np.testing.assert_array_equal(lanes[:, 0:3].numpy(), c.normal.transpose(1, 2).numpy())
-    np.testing.assert_array_equal(lanes[:, 9:12].numpy(), prep.r_a.transpose(1, 2).numpy())
-    np.testing.assert_array_equal(lanes[:, 15:18].numpy(), prep.inv_w.transpose(1, 2).numpy())
-    np.testing.assert_array_equal(lanes[:, 18].numpy(), prep.bias.numpy())
-    np.testing.assert_array_equal(lanes[:, 19].numpy(), c.friction.expand(B, K).numpy())
-    np.testing.assert_array_equal(lanes[:, 21].numpy(), prep.fmask.numpy())
-    assert not lanes[:, 22:25].any()             # no prescribed b-side velocity
+def test_kernel_inputs_built_once():
+    """What the kernel takes: the raw contacts of a substep and the model's
+    lane tables, built once when the lane backend is set up and handed to
+    every solve, in the layout and dtypes the kernel reads."""
+    env = CursorEnv(EnvConfig(sim=SimConfig(control_freq=100, use_pallas="lane")), device="cpu")
+    st = env.reset_batch(2, torch.Generator().manual_seed(0))
+    ones = torch.ones((2, env._P))
+    c = env.physics.solver_args(st.parts, st.group, ones)[0]
+    t1 = env.physics.lane_tables
+    env.physics.substeps(st.parts, st.group, ones, 2)
+    assert env.physics.lane_tables is t1 is env.physics._substep.lane_tables
+    K = c.depth.shape[1]
+    assert (t1.K, t1.P, t1.route) == (K, env._P, lane_solver.ROUTE_REGS)
+    assert t1.slot_i.dtype == torch.int32 and t1.slot_i.shape == (t1.KS, 4)
+    assert t1.slot_f.dtype == torch.float32 and t1.slot_f.shape == (t1.KS, 2)
+    for t in (t1.slot_i, t1.slot_f, t1.seg_off, t1.b_off):
+        assert t.is_contiguous() and t.device == c.point.device
+    # slot rows: lane, part a, part b, b entry | friction, beta
+    lanes = t1.slot_i[:, 0].numpy()
+    used = lanes >= 0
+    np.testing.assert_array_equal(t1.slot_i[used, 1].numpy(), c.part_a.numpy()[lanes[used]])
+    np.testing.assert_array_equal(t1.slot_i[used, 2].numpy(), c.part_b.numpy()[lanes[used]])
+    np.testing.assert_array_equal(t1.slot_f[used, 0].numpy(), c.friction.numpy()[lanes[used]])
+    np.testing.assert_array_equal(t1.slot_f[used, 1].numpy(), c.beta.numpy()[lanes[used]])
+    # the per-env inputs the kernel reads as they are: no packed copy
+    for t, dtype in ((c.point, torch.float32), (c.normal, torch.float32),
+                     (c.depth, torch.float32), (c.mask, torch.bool)):
+        assert t.dtype == dtype and t.is_contiguous()
+    assert c.vel_b is None
+    # on the CPU the tables are not needed: the plain version, either way
+    args = env.physics.solver_args(st.parts, st.group, ones)
+    before = lane_solver.launches
+    lv, av = lane_solver.solve_contacts_lane(*args)
+    lv_t, av_t = lane_solver.solve_contacts_lane(*args, tables=t1)
+    assert torch.equal(lv, lv_t) and torch.equal(av, av_t) and lane_solver.launches == before
 
 
 def test_work_model_counts():
     """The bound's inputs for table_lack inside a substep (K = 210 lanes,
-    170 with a side b, P = 5, 12 sweeps)."""
+    170 with a side b, P = 5, 12 sweeps), every lane in contact, and for a
+    state with fewer lanes in contact."""
     ops = lane_solver.fp32_ops_per_env(210, 170, 5, 12)
-    assert ops == 12 * (210 * lane_solver.SWEEP_LANE + 170 * lane_solver.SWEEP_LANE_B
-                        + 380 * lane_solver.SWEEP_ENTRY + 5 * lane_solver.SWEEP_PART)
-    assert 2e5 < ops < 4e5
-    assert lane_solver.bytes_per_env(210, 5) == 4 * (25 * 210 + 5 * 23)
-    # welded groups add entries to the per-part scan
-    assert lane_solver.fp32_ops_per_env(210, 170, 5, 12, entries=500) > ops
+    prep = 210 + 210 * (lane_solver.PREP_LANE + lane_solver.SCALE_LANE) + 170 * lane_solver.PREP_LANE_B
+    sweeps = 12 * (210 * lane_solver.SWEEP_LANE + 170 * lane_solver.SWEEP_LANE_B
+                   + 5 * lane_solver.SWEEP_PART)
+    assert ops == prep + sweeps == 331130
+    assert 40_000 < prep < 50_000 and 3.2e5 < ops < 3.5e5
+    assert lane_solver.bytes_per_env(210, 5) == 210 * 29 + 5 * 104 == 6610
+    assert lane_solver.bytes_per_env(210, 5, vel_b=True) == 6610 + 210 * 12
+    # bytes counted as the operations are: every lane's mask, the depth of a
+    # lane whose mask is set, point and normal (and vel_b) of one in contact
+    assert lane_solver.bytes_per_env(210, 5, masked=22, active=20) == 210 + 22 * 4 + 20 * 24 + 520
+    assert lane_solver.bytes_per_env(210, 5, 0, 0, vel_b=True) == 210 + 520
+    # the work follows the lanes in contact; the contact test covers all
+    few = lane_solver.fp32_ops_per_env(210, 170, 5, 12, active=20, active_b=0)
+    assert few == 210 + 20 * (lane_solver.PREP_LANE + lane_solver.SCALE_LANE) + 12 * (
+        20 * lane_solver.SWEEP_LANE + 5 * lane_solver.SWEEP_PART)
+    assert lane_solver.fp32_ops_per_env(210, 170, 5, 12, vel_b=True) == ops + 210 * lane_solver.PREP_VEL_B
 
 
 def test_backend_dispatch():
