@@ -73,7 +73,20 @@ package is imported) on the card:
    samples, costs finite, means within [-1, 1], a plan repeated from the
    same seed equal; and Sawyer at 512 envs under ``position_orientation``
    and ``joint_impedance``, reset and 5 steps, one arm-kernel launch per
-   step, finite and not unstable;
+   step, finite and not unstable. Then the task envs: the scripted demo
+   generator (``make_vec_env("IKEASawyerGen-v0")``, ik, default
+   ``SimConfig``) at 128 envs, ``reset_batch`` and 30 steps of
+   ``scripted_action`` + ``step_batch`` (3 arm-kernel launches a step, the
+   reset's 10 of the free-part kernel), finite, not unstable, some env past
+   the phase it started in, the step and the policy decision timed apart
+   (median and spread over the last 20 steps); a staged connect at 8 envs
+   (a leg placed between the fingers, 8 closing steps, then up to 250
+   policy steps from ``ALIGN_CONN``) that must connect in some env, whose
+   pre-connect state, restored with ``restore_snapshot`` and stepped with
+   the recorded action, must connect again; and ``generate_demos`` through
+   ``furniture_tpu_torch/tools/generate_demos.py``'s ``generate`` at batch
+   16 for 30 steps, its stats schema checked and, where a demo succeeded,
+   its pickles and trajectory-store records read back;
 4. times with CUDA events after a warm-up: env steps/s of ``step_batch``
    for the cursor (B = 4096) and for Sawyer impedance (B = 512) and ik
    (B = 256), the cursor and impedance steps as the median of three rounds
@@ -124,6 +137,14 @@ STEPS = 10
 LANE_STEPS = 5
 CTRL_STEPS = 5
 ARM_RUNS = (("impedance", 512), ("ik", 256))   # bench.py's Sawyer sizes
+# the scripted demo generator: tools/generate_demos.py's usage batch, the
+# staged connect of tests/test_dense_gen.py and the CLI's entry point
+GEN_B = 128
+GEN_STEPS = 30
+STAGED_B = 8
+STAGED_MAX = 250
+ENTRY_B = 16
+ENTRY_STEPS = 30
 # ms per launch of the two physics kernels before their redesign (n = 50;
 # B = 4096 and B = 512; NVIDIA H100 80GB HBM3, 700.00 W, this script at that
 # time): printed beside the new times, not part of the ``kernels`` line
@@ -952,6 +973,169 @@ def main() -> None:
         ctrl_vecs[control_type] = (cvec, cacts)
         ctrl_launches[control_type] = got_arm
 
+    # -- 3f. the task envs: the scripted demo generator -------------------------------
+    stamp("generator rollout")
+    from furniture_tpu_torch.convert import dense_state_to_numpy
+    from furniture_tpu_torch.envs import sawyer_gen as SG
+    from furniture_tpu_torch.tools.generate_demos import generate
+    from furniture_tpu_torch.utils.demo import load_demo
+    from furniture_tpu_torch.utils.traj_store import TrajStore
+
+    genv = ft.make_vec_env("IKEASawyerGen-v0", num_envs=GEN_B, seed=0).env
+    ggen = torch.Generator(device=dev)
+    ggen.manual_seed(5)
+    genv.physics.launches = 0
+    genv.physics.free.launches = 0
+    gstate = genv.reset_batch(GEN_B, ggen)
+    pol = genv.init_policy_state(gstate, ggen)
+    start_phase = pol.phase.clone()   # table_lack's first part starts past INIT_GRIP
+    left_start = torch.zeros_like(start_phase, dtype=torch.bool)
+    gen_step_ms, gen_policy_ms, phase_hist = [], [], []
+    for _ in range(GEN_STEPS):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        ga, pol = genv.scripted_action(pol, gstate)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        gstate, _, grew, _, ginfo = genv.step_batch(gstate, ga)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        gen_policy_ms.append((t_b - t_a) * 1e3)
+        gen_step_ms.append((t_c - t_b) * 1e3)
+        phase_hist.append(torch.bincount(pol.phase.long(), minlength=SG.N_GEN_PHASES))
+        left_start |= pol.phase != start_phase
+    gen_arm_launches, gen_free_launches = genv.physics.launches, genv.physics.free.launches
+    want_arm = genv.config.action_repeat * GEN_STEPS
+    hist = torch.stack(phase_hist).sum(0).tolist()
+    print(f"[main] make_vec_env IKEASawyerGen-v0 (ik) B={GEN_B}: reset_batch + {GEN_STEPS} steps of "
+          f"scripted_action + step_batch, arm kernel launches {gen_arm_launches} (expected {want_arm}), "
+          f"free-part kernel launches {gen_free_launches} (expected 10)")
+    print(f"[main] generator: policy phases over the run (env-steps per phase) {hist}; final phases "
+          f"{torch.bincount(pol.phase.long(), minlength=SG.N_GEN_PHASES).tolist()}; envs that left "
+          f"their starting phase {int(left_start.sum())}; dense phases "
+          f"{torch.bincount(gstate.phase_i.long(), minlength=8).tolist()}; parts touched "
+          f"{int(gstate.touched.sum())}; mean reward of the last step {grew.mean().item():.3f}")
+    if gen_arm_launches != want_arm or gen_free_launches != 10:
+        fail(f"generator launch counts {gen_arm_launches}, {gen_free_launches} != {want_arm}, 10")
+    for t in list(gstate.parts) + [gstate.qpos, gstate.qvel, grew, ga]:
+        if not torch.isfinite(t).all():
+            fail("generator rollout: state, reward or action not finite")
+    if bool(ginfo["unstable"].any()):
+        fail("generator rollout: an env went unstable")
+    if not bool(left_start.any()):
+        fail("generator rollout: no env left the phase it started in")
+    # what paces the host: the ATen operations one decision and one step
+    # dispatch (each an eager launch on the card, or a host-side op)
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with OpCount() as pol_ops:
+        genv.scripted_action(pol, gstate)
+    with OpCount() as step_ops:
+        genv.step_batch(gstate, ga)
+    with OpCount() as ik_ops:
+        genv._ik_prepare(gstate, ga)
+    gen_ops = {"scripted_action": pol_ops.n, "step_batch": step_ops.n, "_ik_prepare": ik_ops.n}
+    print(f"[time] generator: ATen operations dispatched by one scripted_action {pol_ops.n}, one "
+          f"step_batch {step_ops.n} (of which _ik_prepare {ik_ops.n})")
+    tail = lambda xs: (float(np.median(xs[-20:])), min(xs[-20:]), max(xs[-20:]))
+    gen_step_t, gen_policy_t = tail(gen_step_ms), tail(gen_policy_ms)
+    print(f"[time] generator B={GEN_B}, the last 20 of {GEN_STEPS} steps: step_batch (ik) median "
+          f"{gen_step_t[0]:.3f} ms (spread {gen_step_t[1]:.3f}-{gen_step_t[2]:.3f}); scripted_action "
+          f"median {gen_policy_t[0]:.3f} ms (spread {gen_policy_t[1]:.3f}-{gen_policy_t[2]:.3f}); "
+          f"{GEN_B / ((gen_step_t[0] + gen_policy_t[0]) / 1e3):.1f} scripted env steps/s")
+
+    # -- 3g. a staged connect on the card, and its replay ------------------------------
+    stamp("staged connect")
+    st = genv._st
+    ggen.manual_seed(3)
+    sstate = genv.reset_batch(STAGED_B, ggen)
+    fk_out = K.fk(genv.robot, sstate.qpos)
+    grip_pos, _ = K.site_world(genv.robot, fk_out, "right")
+    leg = int(st["leg"][0])
+    sub0 = torch.zeros(STAGED_B, dtype=torch.long, device=dev)
+    gl = genv._site_pos(sstate.parts, genv._stt["gl"][sub0])
+    gr = genv._site_pos(sstate.parts, genv._stt["gr"][sub0])
+    pos = sstate.parts.pos.clone()
+    pos[:, leg] += grip_pos - 0.5 * (gl + gr)
+    sstate = sstate._replace(parts=sstate.parts._replace(pos=pos))
+    a_close = torch.zeros((STAGED_B, genv.dof), device=dev)
+    a_close[:, 6] = 1.0
+    for _ in range(8):
+        sstate = genv.step_batch(sstate, a_close)[0]
+    held = sstate.touch_l[:, 0, leg] & sstate.touch_r[:, 0, leg]
+    print(f"[main] staged connect B={STAGED_B}: leg {leg} between the fingers, 8 closing steps: "
+          f"held in {int(held.sum())} envs")
+    if not bool(held.any()):
+        fail("staged connect: the gripper closed on the leg in no env")
+    pol = genv.init_policy_state(sstate, ggen)
+    pol = pol._replace(phase=torch.full_like(pol.phase, SG.ALIGN_CONN))
+    connected_at = None
+    for i in range(STAGED_MAX):
+        sa, pol = genv.scripted_action(pol, sstate)
+        before = sstate
+        sstate = genv.step_batch(sstate, sa)[0]
+        if bool((sstate.num_connected >= 1).any()):
+            connected_at = i
+            break
+    if connected_at is None:
+        fail(f"staged connect: no env connected in {STAGED_MAX} policy steps (phases "
+             f"{torch.bincount(pol.phase.long(), minlength=SG.N_GEN_PHASES).tolist()})")
+    b = int(torch.nonzero(sstate.num_connected >= 1)[0, 0])
+    print(f"[main] staged connect: env {b} connected at policy step {connected_at + 1} "
+          f"({int((sstate.num_connected >= 1).sum())} of {STAGED_B} envs at that step), groups "
+          f"{sstate.group[b].tolist()}")
+    snap = {k: v[b].cpu().numpy() for k, v in genv.state_snap(before).items()}
+    ggen.manual_seed(7)
+    replay = genv.restore_snapshot(genv.reset_batch(1, ggen), snap)
+    replay = genv.step_batch(replay, sa[b:b + 1])[0]
+    rep_conn = int(replay.num_connected[0])
+    print(f"[main] staged connect replay: env {b}'s pre-connect state restored with restore_snapshot "
+          f"and its action stepped again: num_connected {rep_conn} (recorded "
+          f"{int(sstate.num_connected[b])}), groups {replay.group[0].tolist()}")
+    if rep_conn != int(sstate.num_connected[b]):
+        fail("staged connect: the recorded connect did not reproduce under state replay")
+
+    # -- 3h. the entry point: generate_demos through the CLI's function ------------------
+    stamp("generate_demos entry point")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        demo_dir, store = os.path.join(tmp, "demos"), os.path.join(tmp, "demos.ftr")
+        t_e = time.perf_counter()
+        edemos, estats = generate(n_demos=ENTRY_B, batch=ENTRY_B, seed=0, max_steps=ENTRY_STEPS,
+                                  out=store, demo_dir=demo_dir)
+        entry_s = time.perf_counter() - t_e
+        print(f"[main] generate_demos batch={ENTRY_B} max_steps={ENTRY_STEPS} ({entry_s:.1f} s): "
+              f"{json.dumps(estats)}")
+        want = {"batch": int, "max_steps": int, "seed": int, "success_rate": float,
+                "connect_histogram": list, "mean_num_connected": float,
+                "first_success_steps": list, "furniture_name": str, "n_demos_saved": int}
+        if {k: type(v) for k, v in estats.items()} != want:
+            fail(f"generate_demos: stats schema {sorted(estats)} differs")
+        if sum(estats["connect_histogram"]) != ENTRY_B or estats["max_steps"] != ENTRY_STEPS:
+            fail("generate_demos: the histogram or step count is wrong")
+        if edemos:
+            files = sorted(os.listdir(demo_dir))
+            d0 = load_demo(os.path.join(demo_dir, files[0]))
+            with TrajStore(store, "r") as ts:
+                a0, r0, _ = ts.read(0)
+                n_store = len(ts)
+            ok = (len(files) == len(edemos) == n_store and len(d0["obs"]) == len(d0["actions"]) + 1
+                  and np.array_equal(a0, edemos[0]["actions"]))
+            print(f"[main] generate_demos: {len(files)} demo pickles and {n_store} store records read "
+                  f"back")
+            if not ok:
+                fail("generate_demos: the saved demos do not read back")
+        elif os.path.exists(store) or (os.path.isdir(demo_dir) and os.listdir(demo_dir)):
+            fail("generate_demos: files written without a successful demo")
+
     # -- 4. times ---------------------------------------------------------------
     stamp("cursor times")
     env = vec.env
@@ -1232,13 +1416,14 @@ def main() -> None:
         "step_host_enqueue_ms": step_host_ms,
         "env_steps_per_s": steps_per_s,
         "launches_on_arm_paths": free_launches_arm,
+        "launches_on_generator_path": gen_free_launches,
         "launches_on_planner_paths": {"mppi": mppi_launches, "cem": cem_launches},
     }, {
         "name": "arm_megakernel",
         "route": "cuda",
         "source": "furniture_tpu_torch/physics/csrc/arm_megakernel.cu",
         "replaces": "furniture_tpu/physics/arm_megakernel.py:459",
-        "launches": arm_launches["impedance"] + arm_launches["ik"],
+        "launches": arm_launches["impedance"] + arm_launches["ik"] + gen_arm_launches,
         "max_abs_err": arm_worst,
         "ms": arm_kernel_ms,
         "latency_floor_ms": arm_floor_ms,
@@ -1250,7 +1435,7 @@ def main() -> None:
         "bound_by": arm_bound_by,
         "library_ms": None,
         "bound_ms_at_power_limit": arm_bound_ms / scale,
-        "launches_by_path": arm_launches,
+        "launches_by_path": dict(arm_launches, generator=gen_arm_launches),
         "ill_conditioned_checks": [
             {"case": t, "max_abs_err": e, "median_abs_err": m, "plain_spread_1e-7": s7,
              "plain_spread_1e-6": s6, "envs_over_bound": over}
@@ -1265,6 +1450,16 @@ def main() -> None:
         "position_orientation_step_ms": osc_step_ms,
         "controller_prepare_ms": osc_prepare_ms,
         "svd_synchronises_host": svd_waits,
+        "generator": {
+            "batch": GEN_B,
+            "step_ms_median": gen_step_t[0],
+            "step_ms_spread": [gen_step_t[1], gen_step_t[2]],
+            "scripted_action_ms_median": gen_policy_t[0],
+            "scripted_action_ms_spread": [gen_policy_t[1], gen_policy_t[2]],
+            "staged_connect_policy_steps": connected_at + 1,
+            "entry_point_s": entry_s,
+            "aten_ops": gen_ops,
+        },
     }, {
         "name": "lane_solver",
         "route": "cuda",

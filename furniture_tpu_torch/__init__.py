@@ -16,8 +16,14 @@ and the batched arm control step for Sawyer, Panda, Jaco, Fetch and Baxter
 (``physics/csrc/arm_megakernel.cu``); the lane-solver backend
 (``SimConfig(use_pallas="lane")``, ``physics/lane_solver.py``) with its
 kernel in CUDA (``physics/csrc/lane_solver.cu``); the sampling planners
-MPPI and CEM over ``step_batch`` (``planning``); and the initial-state pool
-(``utils.init_pool``, ``set_init_state_pool``).
+MPPI and CEM over ``step_batch`` (``planning``); the initial-state pool
+(``utils.init_pool``, ``set_init_state_pool``); and the task envs on the arm
+kernel: the dense-reward Sawyer env (``envs.sawyer_dense``,
+``make_vec_env("IKEASawyerDense-v0", ...)``), the scripted demo generator
+with batched ``generate_demos`` (``envs.sawyer_gen``, ``IKEASawyerGen-v0``,
+the CLI ``furniture_tpu_torch/tools/generate_demos.py``) and the Baxter
+toy-table flip (``envs.baxter_toytable``), with the demo recorder and loader
+(``utils.demo``) and the native trajectory store (``utils.traj_store``).
 """
 
 from .api import make_vec_env  # noqa: F401

@@ -3,9 +3,10 @@
 The port's counterpart of ``furniture_tpu.api``: the env registry
 (``register_env``/``get_env``, gym-id parity) and ``make_vec_env`` returning
 a :class:`VecEnv`, a batch of envs on one device with auto-reset. The
-registry holds the cursor env and the five arm agents; the single-env gym
-wrapper with rendering and the dense, generator and toy-table ids wait for
-their envs.
+registry holds the cursor env, the five arm agents, and the task envs: the
+dense-reward Sawyer env, the scripted demo generator and the Baxter
+toy-table flip (``furniture_tpu.api:277-302``'s ids). The single-env gym
+wrapper with rendering waits for the renderer.
 """
 
 from __future__ import annotations
@@ -103,3 +104,30 @@ register_env("IKEACursor-v0", _cursor_factory)
 for _agent in ("Sawyer", "Panda", "Jaco", "Fetch", "Baxter"):
     register_env(f"Furniture{_agent}Env", make_arm_env(_agent))
     register_env(f"IKEA{_agent}-v0", make_arm_env(_agent))
+
+
+def _dense_factory(config: EnvConfig, device=None):
+    from .envs.sawyer_dense import FurnitureSawyerDenseRewardEnv
+
+    return FurnitureSawyerDenseRewardEnv(config.replace(agent_type="Sawyer"), device=device)
+
+
+def _gen_factory(config: EnvConfig, device=None):
+    from .envs.sawyer_gen import FurnitureSawyerGenEnv
+
+    return FurnitureSawyerGenEnv(config.replace(agent_type="Sawyer"), device=device)
+
+
+def _toytable_factory(config: EnvConfig, device=None):
+    from .envs.baxter_toytable import FurnitureBaxterToyTableEnv
+
+    return FurnitureBaxterToyTableEnv(config, device=device)
+
+
+# gym-id parity: env/__init__.py:103-114 + furniture_sawyer_gen.py:738
+register_env("IKEASawyerDense-v0", _dense_factory)
+register_env("furniture-sawyer-densereward-v0", _dense_factory)
+register_env("FurnitureSawyerDenseRewardEnv", _dense_factory)
+register_env("IKEASawyerGen-v0", _gen_factory)
+register_env("FurnitureSawyerGenEnv", _gen_factory)
+register_env("FurnitureBaxterToyTableEnv", _toytable_factory)

@@ -506,26 +506,30 @@ class ArmEnv:
     def _guard(self, state: ArmState):
         """Divergence containment: sanitize the lane and return the
         ``unstable`` flag [B] for the reward/done plumbing. Any non-finite
-        float field marks the lane unstable and is replaced by its finite
-        projection (NaN in qpos propagates through FK into every derived
-        field)."""
+        float field (nested ones too, as in the task envs' states) marks the
+        lane unstable and is replaced by its finite projection (NaN in qpos
+        propagates through FK into every derived field)."""
         parts, unstable = instability_guard(state.parts)
-        rest = state._replace(parts=parts)
         B = unstable.shape[0]
-        floats = ("connected_body1_pos", "connected_body1_quat", "qpos", "qvel",
-                  "ik_target_pos", "hand_quat_init")
-        leaves = list(parts) + [getattr(rest, f) for f in floats]
-        for x in leaves:
+
+        def float_leaves(x):
+            if isinstance(x, tuple):
+                return [y for f in x for y in float_leaves(f)]
+            return [x] if x.is_floating_point() else []
+
+        rest = tuple(getattr(state, f) for f in state._fields if f != "parts")
+        for x in list(parts) + float_leaves(rest):
             unstable = unstable | ~torch.isfinite(x).reshape(B, -1).all(-1)
 
         def clean(x):
+            if isinstance(x, tuple):
+                return type(x)(*(clean(f) for f in x))
+            if not x.is_floating_point():
+                return x
             u = unstable.reshape((B,) + (1,) * (x.dim() - 1))
             return torch.where(u, torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0), x)
 
-        rest = rest._replace(
-            parts=PartState(*(clean(x) for x in parts)),
-            **{f: clean(getattr(rest, f)) for f in floats},
-        )
+        rest = clean(state._replace(parts=parts))
         qvel = torch.where(unstable[:, None], torch.zeros_like(rest.qvel), rest.qvel)
         return rest._replace(qvel=qvel), unstable
 

@@ -1,5 +1,6 @@
-"""Host-side utilities of the port (numpy only)."""
+"""Host-side utilities of the port (numpy only): the initial-state pool,
+demo recording and loading, the native trajectory store and the logger."""
 
-from . import init_pool
+from . import demo, init_pool, logger, traj_store
 
-__all__ = ["init_pool"]
+__all__ = ["demo", "init_pool", "logger", "traj_store"]

@@ -29,8 +29,9 @@ def test_port_imports_no_jax():
     """Importing the port (the planners, the torque-space controllers, the
     pool utilities and the lane solver too), building a table_lack cursor
     env and a Sawyer arm env and stepping both, one lane step and one plan,
-    loads neither jax nor the JAX package (fresh interpreter: this process
-    has imported jax already)."""
+    building and stepping the dense and generator envs, one scripted-policy
+    decision and loading a committed demo loads neither jax nor the JAX
+    package (fresh interpreter: this process has imported jax already)."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -57,6 +58,19 @@ def test_port_imports_no_jax():
         "plan = make_mppi(lane, MPPIConfig(horizon=2, n_samples=2))\n"
         "mean, info = plan(s1, torch.zeros(2, 15), g)\n"
         "assert torch.isfinite(mean).all() and torch.isfinite(info['best_cost'])\n"
+        "dense = ft.make_vec_env('IKEASawyerDense-v0', 1, device='cpu', sim=SimConfig(control_freq=100))\n"
+        "dense.reset()\n"
+        "obs, rew, done, info = dense.step(torch.zeros(1, dense.env.dof))\n"
+        "assert torch.isfinite(rew).all() and int(info['phase_i'][0]) < 32\n"
+        "gvec = ft.make_vec_env('IKEASawyerGen-v0', 1, device='cpu', sim=SimConfig(control_freq=100))\n"
+        "gvec.reset()\n"
+        "genv = gvec.env\n"
+        "a, pol = genv.scripted_action(genv.init_policy_state(gvec.state, g), gvec.state)\n"
+        "obs, rew, done, info = gvec.step(a)\n"
+        "assert torch.isfinite(rew).all() and a.shape == (1, 8)\n"
+        "from furniture_tpu_torch.utils.demo import load_demo\n"
+        "demo = load_demo('demos/generated/Sawyer_table_lack_0825_0000.pkl')\n"
+        "assert len(demo['obs']) == len(demo['actions']) + 1\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'furniture_tpu' or m.startswith('furniture_tpu.')]\n"
         "print('LOADED', bad)\n"
