@@ -86,7 +86,36 @@ package is imported) on the card:
    the recorded action, must connect again; and ``generate_demos`` through
    ``furniture_tpu_torch/tools/generate_demos.py``'s ``generate`` at batch
    16 for 30 steps, its stats schema checked and, where a demo succeeded,
-   its pickles and trajectory-store records read back;
+   its pickles and trajectory-store records read back. Then the iLQR
+   planner and the RL trainers: iLQR on the cursor at ``bench.py``'s configuration
+   (``SimConfig(solver_iters=8)``, 10 substeps a step, horizon 64 x 5
+   iterations, parallel Riccati, cursor 0 holding part 0 driven to a
+   target 18 cm away): a warm-up solve that must beat the zero-control
+   rollout, then 3 timed solves warm-started as ``bench.py`` evolves them,
+   64 + 5 x 64 free-part launches each, then one iteration's steps timed
+   apart, and the free-part kernel held against its plain version at the
+   planner's own inputs (recorded at three steps of the initial rollout,
+   one env, and of the line search, 5 envs; the held group at gscale 0)
+   at n = 5 within 1e-4 and n = 10 within 1e-3; one solve of 1 iteration
+   of the same problem on the lane backend (10 lane-solver launches a
+   planner step: 1,280), and the lane solver held against its plain
+   version at 8 sweeps on the first substep of the recorded steps within
+   1e-4; the arm form of its dynamics (Sawyer impedance, 5 substeps, the
+   parts in motion): one arm-kernel launch for the ``autograd.Function``'s
+   forward, within 5e-4 of the plain version, and its Jacobian along 4
+   random directions against central differences of the kernel forward
+   (at whichever eps of 1e-3, 3e-4, 1e-4 the plain forward's own
+   differences come closest, the step being smooth only between contact
+   onsets), within twice the plain forward's own gap or 1e-3 of
+   max |J d|; the RL stack on the cursor at default
+   ``SimConfig``: 2 PPO iterations at ``PPOConfig()`` (128 launches each
+   plus 10 a step with a done), its rollout and update timed apart, a
+   checkpoint round trip of the card's state (bit-exact), 20 SAC
+   iterations at ``SACConfig()`` (16 of warm-up), one GAIL iteration on
+   expert arrays of the cursor's widths made from the seed, BC on the
+   committed demos (the loss must fall), ``make_evaluate`` at 64 episodes x
+   200 steps (410 launches), and ``train_rl.train`` for 2 iterations (the
+   entry point: metrics lines, ``result.json``, 686 launches plus resets);
 4. times with CUDA events after a warm-up: env steps/s of ``step_batch``
    for the cursor (B = 4096) and for Sawyer impedance (B = 512) and ik
    (B = 256), the cursor and impedance steps as the median of three rounds
@@ -145,6 +174,24 @@ STAGED_B = 8
 STAGED_MAX = 250
 ENTRY_B = 16
 ENTRY_STEPS = 30
+# the iLQR planner at bench.py's configuration (bench.py:201-256): the cursor
+# on SimConfig(solver_iters=8), 10 substeps a planner step, cursor 0 holding
+# part 0, which the cost drives to a target 18 cm away
+ILQR = dict(horizon=64, iterations=5, parallel_riccati=True)
+ILQR_SUBSTEPS = 10
+ILQR_SOLVES = 3
+ARM_JAC_SUBSTEPS = 5
+# central differences of the arm dynamics: directions, and the steps tried
+ARM_FD_DIRS, ARM_FD_EPS = 4, (1e-3, 3e-4, 1e-4)
+# the RL stack on the cursor at default SimConfig: PPOConfig() (256 envs x 64
+# steps), SACConfig() (64 envs; 16 iterations of warm-up = 1,024 transitions,
+# then updates), one GAIL iteration, BC on the committed demos, the
+# evaluation at 64 episodes x 200 steps, and train_rl for 2 iterations
+PPO_ITERS = 2
+SAC_ITERS = 20
+BC_EPOCHS = 5
+EVAL_EPISODES, EVAL_STEPS = 64, 200
+TRAIN_RL_ITERS = 2
 # ms per launch of the two physics kernels before their redesign (n = 50;
 # B = 4096 and B = 512; NVIDIA H100 80GB HBM3, 700.00 W, this script at that
 # time): printed beside the new times, not part of the ``kernels`` line
@@ -258,6 +305,324 @@ def latency_floor(phys, clocks, sm_count: int):
     trip_ms = cuda_ms(lambda: phys.barrier_probe(blocks, probe_n), 3) / probe_n
     waves = -(-clocks.shape[0] // blocks)
     return waves * barriers * trip_ms, resident, barriers, trip_ms * 1e3
+
+
+def _timed(fn):
+    """(fn(), seconds) on the host clock, the card synchronised on both
+    sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def drive_ilqr(dev, backend="auto", iterations=ILQR["iterations"], solves=ILQR_SOLVES):
+    """iLQR on the cursor at bench.py's configuration: a warm-up solve of
+    ``iterations`` iterations, then ``solves`` timed solves, each from the
+    start state nudged by 1e-4 (i + 1) and warm-started with the previous
+    plan, as bench.py's ``evolve`` does; then one iteration's steps timed
+    apart, and run once more with the physics inputs recorded. ``backend``
+    is ``SimConfig.use_pallas``. Returns ``(out, env, recorded)``: ``out``
+    a dict of what it measured, the physics kernel's launches per solve
+    (the free-part kernel's, or the lane solver's under
+    ``backend="lane"``) in ``launches``, those of the warm-up solve in
+    ``warm_up_launches``; ``recorded`` the inputs ``(parts, group,
+    gscale, n)`` of three steps of the initial rollout (one env) and of
+    the line search (``len(alphas)`` envs), at t = 0, H/2 and H - 1."""
+    import torch
+
+    from furniture_tpu_torch.config import EnvConfig, SimConfig
+    from furniture_tpu_torch.envs.cursor import CursorEnv
+    from furniture_tpu_torch.physics import lane_solver
+    from furniture_tpu_torch.physics.state import PartState
+    from furniture_tpu_torch.planning import ILQRConfig, flatten_env_dynamics, make_ilqr
+
+    env = CursorEnv(EnvConfig(sim=SimConfig(solver_iters=8, use_pallas=backend)), device=dev)
+    counter = lane_solver if backend == "lane" else env.physics
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    s = env.reset_batch(1, gen)
+    cursor = s.cursor_pos.clone()
+    cursor[:, 0] = s.parts.pos[:, 0]
+    s = s._replace(cursor_pos=cursor,
+                   selected=torch.tensor([[0, -1]], dtype=torch.int32, device=dev))
+    f, x0, unravel = flatten_env_dynamics(env, s, substeps=ILQR_SUBSTEPS)
+    target = unravel(x0)["pos"][0] + torch.tensor([0.12, 0.1, 0.08], device=dev)
+
+    def running_cost(x, u, t):
+        return (10.0 * torch.sum((unravel(x)["pos"][:, 0] - target) ** 2, -1)
+                + 0.05 * torch.sum(u**2, -1))
+
+    def terminal_cost(x):
+        return 100.0 * torch.sum((unravel(x)["pos"][:, 0] - target) ** 2, -1)
+
+    cfg = ILQRConfig(**{**ILQR, "iterations": iterations})
+    plan = make_ilqr(f, running_cost, terminal_cost, cfg)
+    u = torch.zeros((cfg.horizon, env.dof), device=dev)
+    counter.launches = 0
+    (_, info0), warm_s = _timed(lambda: plan(x0, u))
+    out = {"warm_up_s": warm_s, "warm_up_launches": counter.launches,
+           "solve_s": [], "launches": [], "cost": [], "cost0": [],
+           "history": [], "finite": True, "cold_cost": info0["cost"].item(),
+           "cold_cost0": info0["cost0"].item()}
+    for i in range(solves):
+        counter.launches = 0
+        xi = x0 + 1e-4 * (i + 1)
+        (u, info), sec = _timed(lambda: plan(xi, u))
+        out["launches"].append(counter.launches)
+        out["solve_s"].append(sec)
+        out["cost"].append(info["cost"].item())
+        out["cost0"].append(info["cost0"].item())
+        out["history"].append(info["history"].tolist())
+        out["finite"] &= bool(torch.isfinite(u).all())
+    # the last solve's plan rolled out: the held part against its target
+    x = x0[None]
+    with torch.no_grad():
+        for ut in u:
+            x = f(x, ut[None])
+    out["distance_m"] = [torch.linalg.norm(unravel(x0)["pos"][0] - target).item(),
+                         torch.linalg.norm(unravel(x)["pos"][0, 0] - target).item()]
+    # one iteration's steps, timed apart
+    (xs, _), out["initial_rollout_ms"] = _timed(lambda: plan.initial_rollout(x0, u))
+    exp, out["linearize_ms"] = _timed(lambda: plan.linearize(xs, u))
+    reg = torch.full((), cfg.reg_init, device=dev)
+    (ks, Ks, _), out["backward_ms"] = _timed(lambda: plan.backward(*exp, reg))
+    _, out["line_search_ms"] = _timed(lambda: plan.line_search(x0, xs, u, ks, Ks))
+    for k in ("initial_rollout_ms", "linearize_ms", "backward_ms", "line_search_ms"):
+        out[k] *= 1e3
+    # the same two rollouts again, with the physics inputs recorded
+    calls = []
+
+    def record(parts, group, gscale, n):
+        own = lambda t: t.clone(memory_format=torch.contiguous_format)
+        calls.append((PartState(*map(own, parts)), own(group), own(gscale), n))
+        return CursorEnv._physics(env, parts, group, gscale, n)
+
+    env._physics = record
+    try:
+        plan.initial_rollout(x0, u)
+        plan.line_search(x0, xs, u, ks, Ks)
+    finally:
+        del env._physics
+    H = cfg.horizon
+    if len(calls) != 2 * H:
+        fail(f"iLQR: {len(calls)} physics calls in an initial rollout and a line search, not {2 * H}")
+    recorded = [calls[o + t] for o in (0, H) for t in (0, H // 2, H - 1)]
+    out["n"], out["m"], out["horizon"] = x0.shape[0], env.dof, cfg.horizon
+    out["iterations"], out["alphas"] = cfg.iterations, len(cfg.alphas)
+    return out, env, recorded
+
+
+def drive_arm_dynamics(dev):
+    """The arm form of the iLQR dynamics (Sawyer impedance, default
+    ``SimConfig``), from a reset with the parts in motion: the forward
+    (the arm kernel on the card) against the plain version over the n rows
+    of a Jacobian batch; then the Jacobian through the autograd.Function
+    (kernel forward, plain backward) against central differences of the
+    kernel forward along ``ARM_FD_DIRS`` random directions in (x, u), as
+    the gap max |J d - fd(d)| / max |J d|, beside the same gap of the
+    plain forward's central differences, at the step of ``ARM_FD_EPS``
+    where the latter is least."""
+    import torch
+
+    from furniture_tpu_torch.config import EnvConfig
+    from furniture_tpu_torch.envs.arm import ArmEnv
+    from furniture_tpu_torch.planning import flatten_env_dynamics
+
+    env = ArmEnv(EnvConfig(agent_type="Sawyer", control_type="impedance"), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    f, x0, unravel = flatten_env_dynamics(env, env.reset_batch(1, gen), substeps=ARM_JAC_SUBSTEPS)
+    # at zero angular velocity the integrator's axis w/|w| has a 1e9
+    # derivative, which would swamp every other entry
+    for name in ("lin_vel", "ang_vel"):
+        v = unravel(x0)[name]
+        v.copy_(torch.linspace(-0.5, 0.5, v.numel(), device=dev).reshape(v.shape))
+    # the fingers rest at their open limit, where the joint clamp makes the
+    # step jump: joints within 5 mm (rad) of a limit go to mid-range
+    q = unravel(x0)["qpos"]
+    lim = torch.as_tensor(env.robot.jnt_range, dtype=q.dtype, device=dev)
+    near = ((q - lim[:, 0]) < 5e-3) | ((lim[:, 1] - q) < 5e-3)
+    q.copy_(torch.where(near, lim.mean(-1), q))
+    n, m = x0.shape[0], env.dof
+    u0 = torch.linspace(-0.5, 0.5, m, device=dev)
+    eye = torch.eye(n, device=dev)
+    env.physics.launches = 0
+    X = x0[None].repeat(n, 1).requires_grad_(True)
+    U = u0[None].repeat(n, 1).requires_grad_(True)
+    y = f(X, U)
+    Jx, Ju = torch.autograd.grad(y, (X, U), eye)
+    launches = env.physics.launches
+    with torch.no_grad():
+        yp = f.f_grad(X, U)
+        gen.manual_seed(5)
+        D = ARM_FD_DIRS
+        dx = torch.rand((D, n), generator=gen, device=dev) * 2 - 1
+        du = torch.rand((D, m), generator=gen, device=dev) * 2 - 1
+        jd = dx @ Jx.T + du @ Ju.T
+
+        def gap(fn, eps):
+            ys = fn(torch.cat([x0 + eps * dx, x0 - eps * dx]), torch.cat([u0 + eps * du, u0 - eps * du]))
+            return ((ys[:D] - ys[D:]) / (2 * eps) - jd).abs().max().item() / jd.abs().max().item()
+
+        # the step is smooth only between contact onsets: the eps at which
+        # the plain forward's own differences come closest to J d
+        plain_gaps = {eps: gap(f.f_grad, eps) for eps in ARM_FD_EPS}
+        eps = min(plain_gaps, key=plain_gaps.get)
+        kernel_gap = gap(f, eps)
+    return {"launches": launches, "rows": n, "substeps": ARM_JAC_SUBSTEPS,
+            "forward_max_abs_err": (y - yp).abs().max().item(), "fd_eps": eps,
+            "fd_gap": kernel_gap, "fd_gap_plain": plain_gaps[eps], "fd_gaps_plain": plain_gaps,
+            "jd_max_abs": jd.abs().max().item(), "jacobian_max_abs": Jx.abs().max().item(),
+            "finite": bool(torch.isfinite(Jx).all() and torch.isfinite(Ju).all())}
+
+
+def drive_rl(dev):
+    """The RL stack on the cursor (table_lack, default ``SimConfig``):
+    PPO, SAC, one GAIL iteration, BC on the committed demos, the
+    evaluation, a checkpoint round trip of the card's state and the
+    entry point ``train_rl``. Returns a dict of what it measured; each
+    phase's free-part kernel launches are read from the env it drove,
+    their counts set to 0 just before."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from furniture_tpu_torch import rl
+    from furniture_tpu_torch.config import EnvConfig
+    from furniture_tpu_torch.envs.cursor import CursorEnv
+    from furniture_tpu_torch.rl.ppo import gae
+    from furniture_tpu_torch.tools import train_rl
+    from furniture_tpu_torch.utils.checkpoint import (
+        latest_checkpoint, load_checkpoint, save_checkpoint,
+    )
+    from furniture_tpu_torch.utils.demo import load_demo
+
+    env = CursorEnv(EnvConfig(), device=dev)
+    phys = env.physics
+    out = {}
+    finite = lambda m: all(np.isfinite(float(v)) for v in m.values())
+
+    # PPO
+    pcfg = rl.PPOConfig()
+    phys.launches = 0
+    init, train = rl.make_ppo(env, pcfg)
+    st = init(0)
+    out["ppo_setup_launches"] = phys.launches
+    its = []
+    for _ in range(PPO_ITERS):
+        phys.launches = 0
+        (st, m), sec = _timed(lambda: train(st))
+        its.append({"s": sec, "launches": phys.launches, "done_frac": float(m["done_frac"]),
+                    "loss": float(m["loss"]), "reward_per_step": float(m["reward_per_step"]),
+                    "finite": finite(m)})
+    out["ppo_iters"] = its
+    out["ppo_env_steps"] = pcfg.num_envs * pcfg.rollout_len
+    (env_states, traj, last_value), roll_s = _timed(
+        lambda: train.rollout(st.params, st.env_states, st.generator))
+    adv, ret = gae(traj, last_value, pcfg.gamma, pcfg.lam)
+    _, upd_s = _timed(lambda: train.update(st.params, st.opt_state, traj, adv, ret,
+                                                st.generator))
+    out["ppo_rollout_ms"], out["ppo_update_ms"] = roll_s * 1e3, upd_s * 1e3
+
+    # the checkpoint of the card's state, back into a fresh state
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, st, st.step)
+        back = load_checkpoint(latest_checkpoint(tmp), init(7))
+    same = (back.step == st.step
+            and all(torch.equal(a, b) for a, b in zip(st.params.state_dict().values(),
+                                                       back.params.state_dict().values()))
+            and torch.equal(st.generator.get_state(), back.generator.get_state())
+            and all(torch.equal(a, b) for a, b in zip(
+                [t for t in st.env_states if isinstance(t, torch.Tensor)] + list(st.env_states.parts),
+                [t for t in back.env_states if isinstance(t, torch.Tensor)] + list(back.env_states.parts))))
+    sa, sb = st.opt_state.state_dict()["state"], back.opt_state.state_dict()["state"]
+    same = same and all(sa[k]["count"] == sb[k]["count"] and torch.equal(sa[k]["mu"], sb[k]["mu"])
+                        and torch.equal(sa[k]["nu"], sb[k]["nu"]) for k in sa)
+    out["checkpoint_bit_exact"] = bool(same)
+    out["checkpoint_on"] = str(back.env_states.parts.pos.device)
+
+    # SAC
+    scfg = rl.SACConfig()
+    phys.launches = 0
+    sinit, strain = rl.make_sac(env, scfg)
+    sst = sinit(1)
+    out["sac_setup_launches"] = phys.launches
+    phys.launches = 0
+    warm_ms, upd_ms, sm = [], [], None
+    for _ in range(SAC_ITERS):
+        warm = sst.step * scfg.num_envs < scfg.warmup
+        (sst, sm), sec = _timed(lambda: strain(sst))
+        (warm_ms if warm else upd_ms).append(sec * 1e3)
+    out["sac"] = {"launches": phys.launches, "iters": SAC_ITERS, "warm_up_iters": len(warm_ms),
+                  "warm_up_ms_median": float(np.median(warm_ms)) if warm_ms else None,
+                  "update_iter_ms_median": float(np.median(upd_ms)) if upd_ms else None,
+                  "buffer_size": sst.buffer.size, "q_loss": float(sm["q_loss"]),
+                  "alpha": float(sm["alpha"]), "finite": finite(sm)}
+
+    # GAIL: expert arrays of the cursor's widths, from the seed
+    rng = np.random.default_rng(0)
+    obs_d, act_d = rl.obs_dim(env.observe(st.env_states)), env.dof
+    e_obs = rng.standard_normal((1024, obs_d)).astype(np.float32)
+    e_act = rng.uniform(-1, 1, (1024, act_d)).astype(np.float32)
+    g_init, disc_reward, disc_update, g_make_ppo = rl.make_gail(env, pcfg, rl.GAILConfig(),
+                                                                e_obs, e_act)
+    ds, policy_seed = g_init(2)
+    ginit, gtrain = g_make_ppo(env, pcfg, reward_fn=lambda o, a, r: disc_reward(ds.params)(o, a, r))
+    gst = ginit(policy_seed)
+    phys.launches = 0
+
+    def gail_iteration(gst=gst):
+        obs = rl.flatten_obs(env.observe(gst.env_states))
+        with torch.no_grad():
+            acts = gst.params["pi"].sample(obs, gst.generator)[0]
+        _, dm = disc_update(ds, obs, acts)
+        gst, gm = gtrain(gst)
+        return {**dm, **gm}
+
+    gm, gail_s = _timed(gail_iteration)
+    out["gail"] = {"s": gail_s, "launches": phys.launches, "disc_acc": float(gm["disc_acc"]),
+                   "reward_per_step": float(gm["reward_per_step"]), "finite": finite(gm)}
+
+    # BC on the committed demos
+    files = sorted(glob.glob(os.path.join(HERE, "demos", "generated", "*.pkl")))
+    X, Y = rl.demos_to_dataset([load_demo(fn) for fn in files])
+    binit, bfit, bpredict = rl.make_bc(X.shape[-1], Y.shape[-1], rl.BCConfig(lr=3e-4), device=dev)
+    Xd, Yd = torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev)
+    bst = binit(0)
+    mses, bc_s = [], []
+    for _ in range(BC_EPOCHS):
+        (bst, bm), sec = _timed(lambda: bfit(bst, Xd, Yd))
+        mses.append(float(bm["mse"]))
+        bc_s.append(sec)
+    out["bc"] = {"demos": len(files), "samples": int(X.shape[0]), "mse": mses, "epoch_s": bc_s,
+                 "pred_shape": list(bpredict(bst.params, Xd[:64]).shape)}
+
+    # the evaluation
+    egen = torch.Generator(device=dev)
+    egen.manual_seed(3)
+    evaluate = rl.make_evaluate(env, rl.ppo_act, EVAL_EPISODES, EVAL_STEPS)
+    phys.launches = 0
+    em, eval_s = _timed(lambda: evaluate(st.params, egen))
+    out["eval"] = {"s": eval_s, "launches": phys.launches, **{k: float(v) for k, v in em.items()}}
+
+    # the entry point: a fresh env inside, its launches counted from 0
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_rl.parse_args(["--algo", "ppo", "--iters", str(TRAIN_RL_ITERS),
+                                    "--run_dir", tmp])
+        (result, tenv), tr_s = _timed(lambda: train_rl.train(args))
+        lines = [json.loads(l) for l in open(os.path.join(tmp, "metrics.jsonl"))]
+        on_disk = json.load(open(os.path.join(tmp, "result.json")))
+    out["train_rl"] = {"s": tr_s, "launches": tenv.physics.launches, "result": on_disk,
+                       "metric_lines": [l["iter"] for l in lines],
+                       "num_envs": args.num_envs, "rollout_len": args.rollout_len,
+                       "eval_episodes": args.eval_episodes, "eval_max_steps": args.eval_max_steps}
+    return out
 
 
 def main() -> None:
@@ -589,12 +954,12 @@ def main() -> None:
         parts = parts._replace(lin_vel=parts.lin_vel + push, ang_vel=parts.ang_vel + 0.1)
         return env, st.group, env.physics.solver_args(parts, st.group, ones)
 
-    def hold_lane(tag, tables, args, route=None, exact=False):
+    def hold_lane(tag, tables, args, route=None, exact=False, sweeps=(12, 24)):
         """The kernel (``solve_contacts_lane`` with the model's ``tables``,
-        or one launch of ``route``'s tables) against the plain version at 12
-        and 24 sweeps within 1e-4, two launches bit-identical, held to the
-        cold ``engine._solve_contacts``; ``exact``: no lane has a contact,
-        so the velocities come back as they went in."""
+        or one launch of ``route``'s tables) against the plain version at
+        each of ``sweeps`` within 1e-4, two launches bit-identical, held to
+        the cold ``engine._solve_contacts``; ``exact``: no lane has a
+        contact, so the velocities come back as they went in."""
         nonlocal lane_worst
         c = args[0]
         B_, P_ = args[1].shape
@@ -617,7 +982,7 @@ def main() -> None:
                 return lane_solver.solve_contacts_lane(*a, tables=tables)
             return lane_solver.launch(tables, *a)[:2]
 
-        for iters in (12, 24):
+        for iters in sweeps:
             a = args[:8] + (iters,) + args[9:]
             lv, av = solve(a)
             lv2, av2 = solve(a)
@@ -875,19 +1240,12 @@ def main() -> None:
         if mean.abs().max().item() > 1.0 + 1e-6:
             fail(f"{tag}: mean outside [-1, 1]")
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
-
     penv.physics.launches = 0
     mean = torch.zeros((mcfg.horizon, penv.dof), device=dev)
     mppi_s = []
     for i in range(3):                      # receding horizon: warm-started mean
         pgen.manual_seed(10 + i)
-        (mean, pinfo), sec = timed(lambda: plan(pstate, mean, pgen))
+        (mean, pinfo), sec = _timed(lambda: plan(pstate, mean, pgen))
         check_plan(mean, pinfo, f"MPPI plan {i}")
         mppi_s.append(sec)
     mppi_launches = penv.physics.launches
@@ -911,7 +1269,7 @@ def main() -> None:
     lane_solver.launches = 0
     penv.physics.launches = 0
     pgen.manual_seed(10)
-    (lmean, linfo), lane_plan_s = timed(lambda: lplan(pstate, torch.zeros_like(mean), pgen))
+    (lmean, linfo), lane_plan_s = _timed(lambda: lplan(pstate, torch.zeros_like(mean), pgen))
     check_plan(lmean, linfo, "MPPI lane plan")
     mppi_lane_launches = lane_solver.launches
     want = mcfg.horizon * (lpenv.config.n_substeps + 1)
@@ -924,7 +1282,7 @@ def main() -> None:
     ccfg = CEMConfig(horizon=16, n_samples=256, n_elite=32)
     cem = make_cem(penv, ccfg)
     pgen.manual_seed(20)
-    (cmean, csigma, cinfo), cem_s = timed(lambda: cem(
+    (cmean, csigma, cinfo), cem_s = _timed(lambda: cem(
         pstate, torch.zeros((ccfg.horizon, penv.dof), device=dev),
         torch.full((ccfg.horizon, penv.dof), ccfg.sigma_init, device=dev), pgen))
     cem_launches = penv.physics.launches
@@ -1135,6 +1493,144 @@ def main() -> None:
                 fail("generate_demos: the saved demos do not read back")
         elif os.path.exists(store) or (os.path.isdir(demo_dir) and os.listdir(demo_dir)):
             fail("generate_demos: files written without a successful demo")
+
+    # -- 3i. the iLQR planner, and the arm form of its dynamics ---------------------------
+    stamp("iLQR planner")
+    il, il_env, il_recorded = drive_ilqr(dev)
+    want_il = il["horizon"] + il["iterations"] * il["horizon"]
+    med_il = float(np.median(il["solve_s"]))
+    print(f"[main] iLQR on the cursor, horizon {il['horizon']} x {il['iterations']} iterations, "
+          f"{il['alphas']} step sizes, n = {il['n']}, m = {il['m']}, {ILQR_SUBSTEPS} substeps a step: "
+          f"free-part kernel launches per solve {il['launches']} (expected {want_il}); cold solve "
+          f"cost {il['cold_cost']:.5g} from {il['cold_cost0']:.5g} (zero controls); warm-started "
+          f"solves cost {[round(c, 6) for c in il['cost']]} from {[round(c, 6) for c in il['cost0']]}; "
+          f"held part {il['distance_m'][0]:.4f} -> {il['distance_m'][1]:.4f} m from its target")
+    print(f"[time] iLQR solve ({ILQR_SOLVES} solves): median {med_il:.3f} s (spread "
+          f"{min(il['solve_s']):.3f}-{max(il['solve_s']):.3f}), warm-up solve {il['warm_up_s']:.3f} s; "
+          f"one iteration's steps: initial rollout {il['initial_rollout_ms']:.1f} ms, linearize "
+          f"{il['linearize_ms']:.1f} ms, backward (parallel) {il['backward_ms']:.1f} ms, line search "
+          f"{il['line_search_ms']:.1f} ms | {card}")
+    if il["launches"] != [want_il] * ILQR_SOLVES:
+        fail(f"iLQR launch counts {il['launches']} != {want_il}")
+    if not (il["finite"] and il["cold_cost"] < il["cold_cost0"]
+            and all(c <= c0 for c, c0 in zip(il["cost"], il["cost0"]))
+            and il["distance_m"][1] < il["distance_m"][0]):
+        fail("iLQR: the plan is not finite, or does not beat the zero-control rollout")
+    # the free-part kernel at the planner's own inputs: SimConfig(solver_iters=8),
+    # the held group at gscale 0, one env (initial rollout) and len(alphas)
+    # envs (line search), at the path's n = 10 and at n = 5
+    H = il["horizon"]
+    for k, (parts, group, gscale, n) in enumerate(il_recorded):
+        where = ("initial rollout", "line search")[k // 3]
+        t = (0, H // 2, H - 1)[k % 3]
+        hold(il_env, parts, group, gscale, f"iLQR {where} t={t} (B={group.shape[0]}, held gscale "
+             f"{gscale.min().item():g})", checks=((5, 1e-4), (n, 1e-3)))
+
+    lane_il, lane_env, lane_recorded = drive_ilqr(dev, backend="lane", iterations=1, solves=0)
+    want_lane_il = 2 * H * ILQR_SUBSTEPS       # one iteration; one lane-solver launch a substep
+    print(f"[main] iLQR on the lane backend (the same problem, one solve of 1 iteration): lane-solver "
+          f"launches {lane_il['warm_up_launches']} (expected {want_lane_il}), cost "
+          f"{lane_il['cold_cost']:.5g} from {lane_il['cold_cost0']:.5g}; {lane_il['warm_up_s']:.3f} s, "
+          f"one iteration's line search {lane_il['line_search_ms']:.1f} ms | {card}")
+    if lane_il["warm_up_launches"] != want_lane_il or not lane_il["cold_cost"] < lane_il["cold_cost0"]:
+        fail("iLQR lane backend: launch count or cost wrong")
+    # the lane solver at the planner's own inputs: the first substep of each
+    # recorded step, at the configuration's 8 sweeps
+    lphys = lane_env.physics
+    any_live = False
+    for k, (parts, group, gscale, n) in enumerate(lane_recorded):
+        args = lphys.solver_args(parts, group, gscale)
+        c = args[0]
+        live = bool((c.mask & (c.depth > -args[10])).any())
+        any_live |= live
+        where = ("initial rollout", "line search")[k // 3]
+        t = (0, H // 2, H - 1)[k % 3]
+        hold_lane(f"iLQR {where} t={t}", lphys.lane_tables, args, exact=not live, sweeps=(args[8],))
+    if not any_live:
+        fail("iLQR lane backend: no recorded step has an active contact lane")
+
+    stamp("iLQR arm dynamics")
+    ad = drive_arm_dynamics(dev)
+    fd_bound = max(2 * ad["fd_gap_plain"], 1e-3)
+    print(f"[main] iLQR arm dynamics (Sawyer impedance, {ad['substeps']} substeps, {ad['rows']} rows): "
+          f"arm kernel launches {ad['launches']} (expected 1); forward, kernel vs plain max|diff| "
+          f"{ad['forward_max_abs_err']:.3g} (bound 5e-4); the Function's Jacobian J (max |J_x| "
+          f"{ad['jacobian_max_abs']:.4g}) along {ARM_FD_DIRS} random directions d in (x, u) vs central "
+          f"differences of the kernel forward at eps {ad['fd_eps']:g} (of {ARM_FD_EPS}, the plain "
+          f"forward's closest: its gaps {ad['fd_gaps_plain']}): max|J d - fd| / max|J d| "
+          f"{ad['fd_gap']:.3g} (bound {fd_bound:.3g}: twice the plain forward's own {ad['fd_gap_plain']:.3g}, "
+          f"or 1e-3), max |J d| {ad['jd_max_abs']:.4g}")
+    if ad["launches"] != 1 or not ad["finite"]:
+        fail(f"arm dynamics: {ad['launches']} arm kernel launches, finite {ad['finite']}")
+    if not (ad["forward_max_abs_err"] <= 5e-4 and ad["fd_gap"] <= fd_bound):
+        fail("arm dynamics: the kernel forward disagrees with the plain version, or the Function's "
+             "Jacobian with the kernel's central differences")
+
+    # -- 3j. the RL stack and its entry point ---------------------------------------------
+    stamp("RL stack")
+    rr = drive_rl(dev)
+    T2 = 2 * 64                          # PPOConfig().rollout_len steps, 2 launches each
+
+    def resets_ok(got, base):
+        return got >= base and (got - base) % 10 == 0
+
+    ppo_s = [it["s"] for it in rr["ppo_iters"]]
+    ppo_launch = [it["launches"] for it in rr["ppo_iters"]]
+    print(f"[main] PPO (PPOConfig(): 256 envs x 64 steps, 3 epochs x 4 minibatches, hidden 256x256): "
+          f"set-up launches {rr['ppo_setup_launches']} (expected 20: the probe's and the lanes' resets); "
+          f"{PPO_ITERS} iterations, free-part kernel launches {ppo_launch} (expected {T2} + 10 a step "
+          f"with a done), done fractions {[it['done_frac'] for it in rr['ppo_iters']]}, losses "
+          f"{[round(it['loss'], 5) for it in rr['ppo_iters']]}")
+    print(f"[time] PPO iteration: {[round(x, 3) for x in ppo_s]} s, "
+          f"{rr['ppo_env_steps'] / min(ppo_s):.1f} env steps/s at the faster; rollout "
+          f"{rr['ppo_rollout_ms']:.1f} ms, update {rr['ppo_update_ms']:.1f} ms | {card}")
+    if rr["ppo_setup_launches"] != 20 or not all(resets_ok(n, T2) for n in ppo_launch) \
+            or not all(it["finite"] for it in rr["ppo_iters"]):
+        fail("PPO: launch counts or metrics wrong")
+    sac = rr["sac"]
+    print(f"[main] SAC (SACConfig(): 64 envs) {sac['iters']} iterations ({sac['warm_up_iters']} of warm-up): "
+          f"free-part kernel launches {sac['launches']} (expected {2 * SAC_ITERS} + 10 a step with a done), "
+          f"buffer {sac['buffer_size']}, q_loss {sac['q_loss']:.4g}, alpha {sac['alpha']:.5f}; "
+          f"ms an iteration: warm-up {sac['warm_up_ms_median']:.1f}, with an update "
+          f"{sac['update_iter_ms_median']:.1f} (medians) | {card}")
+    if not (resets_ok(sac["launches"], 2 * SAC_ITERS) and sac["finite"]
+            and sac["buffer_size"] == SAC_ITERS * 64 and sac["warm_up_iters"] == 16):
+        fail("SAC: launch counts, buffer or metrics wrong")
+    ga = rr["gail"]
+    print(f"[main] GAIL: one iteration (2 discriminator updates, then PPO on its reward) {ga['s']:.3f} s, "
+          f"free-part kernel launches {ga['launches']} (expected {T2} + resets), discriminator accuracy "
+          f"{ga['disc_acc']:.3f}, reward per step {ga['reward_per_step']:.4f}")
+    if not (resets_ok(ga["launches"], T2) and ga["finite"] and ga["reward_per_step"] > 0):
+        fail("GAIL: launch counts or metrics wrong")
+    bcr = rr["bc"]
+    print(f"[main] BC on the committed demos ({bcr['demos']} demos, {bcr['samples']} samples): mse by epoch "
+          f"{[round(x, 5) for x in bcr['mse']]}, s an epoch {[round(x, 3) for x in bcr['epoch_s']]}")
+    if not (bcr["mse"][-1] < bcr["mse"][0] and bcr["pred_shape"][0] == 64):
+        fail("BC: the loss did not decrease")
+    ev = rr["eval"]
+    want_ev = 10 + 2 * EVAL_STEPS
+    print(f"[main] make_evaluate {EVAL_EPISODES} episodes x {EVAL_STEPS} steps: {ev['s']:.3f} s, "
+          f"free-part kernel launches {ev['launches']} (expected {want_ev}), success rate "
+          f"{ev['success_rate']:.3f}, mean episode length {ev['mean_episode_len']:.1f}")
+    if ev["launches"] != want_ev or not np.isfinite(ev["mean_reward"]):
+        fail("evaluate: launch count or metrics wrong")
+    print(f"[main] checkpoint round trip of the card's PPO state ({rr['checkpoint_on']}): bit-exact "
+          f"{rr['checkpoint_bit_exact']}")
+    if not rr["checkpoint_bit_exact"] or not rr["checkpoint_on"].startswith("cuda"):
+        fail("checkpoint: the card's state did not come back bit for bit")
+    tr = rr["train_rl"]
+    want_tr = 20 + TRAIN_RL_ITERS * T2 + want_ev
+    print(f"[main] python -m furniture_tpu_torch.tools.train_rl --algo ppo --iters {TRAIN_RL_ITERS} "
+          f"({tr['num_envs']} envs x {tr['rollout_len']} steps, eval {tr['eval_episodes']} x "
+          f"{tr['eval_max_steps']}): {tr['s']:.1f} s, free-part kernel launches {tr['launches']} "
+          f"(expected {want_tr} + 10 a step with a done), metrics lines {tr['metric_lines']}, "
+          f"result {json.dumps(tr['result'])} | {card}")
+    if not (resets_ok(tr["launches"], want_tr) and tr["metric_lines"] == [0, 1, "eval"]
+            and tr["result"]["device"].startswith("cuda")):
+        fail("train_rl: launch count, metrics or result wrong")
+    rl_launches = {"ilqr_per_solve": il["launches"], "ppo_setup": rr["ppo_setup_launches"],
+                   "ppo_iterations": ppo_launch, "sac": sac["launches"], "gail": ga["launches"],
+                   "evaluate": ev["launches"], "train_rl": tr["launches"]}
 
     # -- 4. times ---------------------------------------------------------------
     stamp("cursor times")
@@ -1395,7 +1891,8 @@ def main() -> None:
         "route": "cuda",
         "source": "furniture_tpu_torch/physics/csrc/megakernel.cu",
         "replaces": "furniture_tpu/physics/megakernel.py:428",
-        "launches": launches,
+        "launches": launches + sum(il["launches"]) + rr["ppo_setup_launches"] + sum(ppo_launch)
+        + sac["launches"] + ga["launches"] + ev["launches"] + tr["launches"],
         "max_abs_err": worst,
         "ms": kernel_ms,
         "welded_ms": welded_ms,
@@ -1418,12 +1915,16 @@ def main() -> None:
         "launches_on_arm_paths": free_launches_arm,
         "launches_on_generator_path": gen_free_launches,
         "launches_on_planner_paths": {"mppi": mppi_launches, "cem": cem_launches},
+        "launches_on_ilqr_and_rl_paths": rl_launches,
+        "ilqr": il,
+        "rl": rr,
     }, {
         "name": "arm_megakernel",
         "route": "cuda",
         "source": "furniture_tpu_torch/physics/csrc/arm_megakernel.cu",
         "replaces": "furniture_tpu/physics/arm_megakernel.py:459",
-        "launches": arm_launches["impedance"] + arm_launches["ik"] + gen_arm_launches,
+        "launches": arm_launches["impedance"] + arm_launches["ik"] + gen_arm_launches
+        + ad["launches"],
         "max_abs_err": arm_worst,
         "ms": arm_kernel_ms,
         "latency_floor_ms": arm_floor_ms,
@@ -1435,7 +1936,9 @@ def main() -> None:
         "bound_by": arm_bound_by,
         "library_ms": None,
         "bound_ms_at_power_limit": arm_bound_ms / scale,
-        "launches_by_path": dict(arm_launches, generator=gen_arm_launches),
+        "launches_by_path": dict(arm_launches, generator=gen_arm_launches,
+                                 ilqr_arm_dynamics=ad["launches"]),
+        "ilqr_arm_dynamics": ad,
         "ill_conditioned_checks": [
             {"case": t, "max_abs_err": e, "median_abs_err": m, "plain_spread_1e-7": s7,
              "plain_spread_1e-6": s6, "envs_over_bound": over}
@@ -1465,7 +1968,7 @@ def main() -> None:
         "route": "cuda",
         "source": "furniture_tpu_torch/physics/csrc/lane_solver.cu",
         "replaces": "furniture_tpu/physics/pallas_solver.py:165",
-        "launches": lane_launches + mppi_lane_launches,
+        "launches": lane_launches + mppi_lane_launches + lane_il["warm_up_launches"],
         "max_abs_err": lane_worst,
         "ms": lane_kernel_ms,
         "plain_ms": lane_plain_ms,
@@ -1480,7 +1983,9 @@ def main() -> None:
         "every_lane_in_contact_ms": lane_full_ms,
         "lanes_with_contact": n_active,
         "lanes_with_mask_set": n_masked,
-        "launches_by_path": {"lane_cursor": lane_launches, "mppi_lane": mppi_lane_launches},
+        "launches_by_path": {"lane_cursor": lane_launches, "mppi_lane": mppi_lane_launches,
+                             "ilqr_lane_solve": lane_il["warm_up_launches"]},
+        "ilqr_lane": lane_il,
         "wrapper_ms": lane_wrapper_ms,
         "engine_solve_contacts_ms": warm_solver_ms,
         "gap_to_cold_engine_solve": {"lin": lane_cold_gap[0], "ang": lane_cold_gap[1]},

@@ -23,7 +23,10 @@ kernel: the dense-reward Sawyer env (``envs.sawyer_dense``,
 with batched ``generate_demos`` (``envs.sawyer_gen``, ``IKEASawyerGen-v0``,
 the CLI ``furniture_tpu_torch/tools/generate_demos.py``) and the Baxter
 toy-table flip (``envs.baxter_toytable``), with the demo recorder and loader
-(``utils.demo``) and the native trajectory store (``utils.traj_store``).
+(``utils.demo``) and the native trajectory store (``utils.traj_store``); the
+iLQR planner (``planning.ilqr``) and the single-device RL/IL stack (``rl``:
+BC, PPO, SAC, GAIL, evaluation; ``utils.checkpoint``; the CLI
+``python -m furniture_tpu_torch.tools.train_rl``).
 """
 
 from .api import make_vec_env  # noqa: F401

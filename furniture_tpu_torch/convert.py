@@ -1,6 +1,7 @@
-"""State carried across between the two packages, as numpy.
+"""State and parameters carried across between the two packages, as numpy.
 
-The system has no weights: what crosses from the JAX package is state. A
+What crosses from the JAX package is env state, the iLQR flat state and
+the RL stack's parameters (the last two at the end of this module). A
 :class:`CursorState`, an :class:`ArmState` or a :class:`DenseState` travels
 as a flat dict of numpy arrays keyed by field name, with the part fields
 under ``pos``, ``quat``, ``lin_vel`` and ``ang_vel`` and a dense state's
@@ -131,3 +132,96 @@ def gen_policy_state_to_numpy(gen: GenPolicyState) -> dict:
     """The port's GenPolicyState → a dict of numpy arrays (int32 phase,
     part, indices and counters; float32 targets and noises)."""
     return {f: _numpy(getattr(gen, f), f, GEN_DTYPES) for f in GenPolicyState._fields}
+
+
+# -- the iLQR flat state -------------------------------------------------------
+#
+# The reference flattens the continuous fields with ``ravel_pytree`` of a
+# dict, which orders them by key; the port's ``flatten_env_dynamics`` keeps
+# its own order, ``unravel.layout`` (a tuple of ``(name, shape)``).
+
+
+def _jax_flat_slices(layout):
+    """Where each field of ``layout`` lies in the reference's flat vector."""
+    sizes = {name: int(np.prod(shape)) for name, shape in layout}
+    out, o = {}, 0
+    for name in sorted(sizes):
+        out[name] = slice(o, o + sizes[name])
+        o += sizes[name]
+    return out
+
+
+def ilqr_flat_from_jax(x, layout) -> np.ndarray:
+    """The reference's flat iLQR state (or a batch of them, ``[..., n]``)
+    in the port's order ``layout``."""
+    x = np.asarray(x, np.float32)
+    where = _jax_flat_slices(layout)
+    return np.concatenate([x[..., where[name]] for name, _ in layout], -1)
+
+
+def ilqr_flat_to_jax(x, layout) -> np.ndarray:
+    """The port's flat iLQR state (``[..., n]``, order ``layout``) in the
+    reference's order."""
+    x = np.asarray(x, np.float32)
+    offs, o = {}, 0
+    for name, shape in layout:
+        size = int(np.prod(shape))
+        offs[name] = slice(o, o + size)
+        o += size
+    return np.concatenate([x[..., offs[name]] for name in sorted(offs)], -1)
+
+
+# -- RL parameters ----------------------------------------------------------------
+#
+# The reference's RL parameters are pytrees of arrays: an MLP is a list of
+# ``{"w": [in, out], "b": [out]}`` layers, a policy ``{"trunk": mlp,
+# "log_std": ...}``, and a training state's ``params`` a dict of those
+# (``{"pi", "vf"}`` for PPO; ``{"pi", "q1", "q2", "q1_t", "q2_t",
+# "log_alpha"}`` for SAC). The port's modules (``rl.networks``) name the
+# same things ``<path>.layers.<i>.weight`` (``wᵀ``), ``<path>.layers.<i>.bias``
+# and ``<path>.log_std``; a head that is an MLP in the reference is an MLP
+# module in the port, so the paths match key for key.
+
+
+def rl_params_to_state_dict(tree) -> dict:
+    """A reference parameter pytree (numpy arrays, or anything
+    ``np.asarray`` takes) → a state dict for the port's module."""
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, (list, tuple)):
+            for i, layer in enumerate(node):
+                out[f"{prefix}layers.{i}.weight"] = torch.from_numpy(
+                    np.array(np.asarray(layer["w"], np.float32).T))
+                out[f"{prefix}layers.{i}.bias"] = torch.from_numpy(
+                    np.array(layer["b"], np.float32))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}.")
+        else:
+            out[prefix[:-1]] = torch.from_numpy(np.array(node, np.float32))
+
+    walk(tree, "")
+    return out
+
+
+def state_dict_to_rl_params(sd: dict):
+    """The port's state dict → the reference's parameter pytree (numpy)."""
+    root: dict = {}
+    for key, value in sd.items():
+        *path, leaf = key.split(".")
+        node = root
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value.detach().cpu().numpy()
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if set(node) == {"layers"}:
+            layers = node["layers"]
+            return [{"w": layers[str(i)]["weight"].T.copy(), "b": layers[str(i)]["bias"]}
+                    for i in range(len(layers))]
+        return {k: build(v) for k, v in node.items()}
+
+    return build(root)

@@ -1,18 +1,22 @@
-"""Sampling planners over the batched env step: MPPI and CEM.
+"""Planners over the batched env step: MPPI, CEM and iLQR.
 
-The port's counterpart of ``furniture_tpu.planning`` without ``ilqr`` (it
-needs the physics differentiable) and ``make_sharded_mppi`` (it needs the
-multi-device layer), which are not ported yet.
+The port's counterpart of ``furniture_tpu.planning`` without
+``make_sharded_mppi`` (it needs the multi-device layer), which is not
+ported yet.
 """
 
 from .cem import CEMConfig, make_cem
+from .ilqr import ILQRConfig, flatten_env_dynamics, make_ilqr
 from .mppi import MPPIConfig, assembly_cost, make_mppi, rollout_costs
 
 __all__ = [
     "CEMConfig",
+    "ILQRConfig",
     "MPPIConfig",
     "assembly_cost",
+    "flatten_env_dynamics",
     "make_cem",
+    "make_ilqr",
     "make_mppi",
     "rollout_costs",
 ]

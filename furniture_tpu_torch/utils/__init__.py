@@ -1,6 +1,7 @@
-"""Host-side utilities of the port (numpy only): the initial-state pool,
-demo recording and loading, the native trajectory store and the logger."""
+"""Host-side utilities of the port: the initial-state pool, demo recording
+and loading, the native trajectory store, the logger and training
+checkpoints."""
 
-from . import demo, init_pool, logger, traj_store
+from . import checkpoint, demo, init_pool, logger, traj_store
 
-__all__ = ["demo", "init_pool", "logger", "traj_store"]
+__all__ = ["checkpoint", "demo", "init_pool", "logger", "traj_store"]

@@ -30,8 +30,10 @@ def test_port_imports_no_jax():
     pool utilities and the lane solver too), building a table_lack cursor
     env and a Sawyer arm env and stepping both, one lane step and one plan,
     building and stepping the dense and generator envs, one scripted-policy
-    decision and loading a committed demo loads neither jax nor the JAX
-    package (fresh interpreter: this process has imported jax already)."""
+    decision, loading a committed demo, the iLQR dynamics of the cursor and
+    one PPO iteration (with the checkpoint and ``train_rl`` modules
+    imported) loads neither jax nor the JAX package (fresh interpreter:
+    this process has imported jax already)."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -71,6 +73,15 @@ def test_port_imports_no_jax():
         "from furniture_tpu_torch.utils.demo import load_demo\n"
         "demo = load_demo('demos/generated/Sawyer_table_lack_0825_0000.pkl')\n"
         "assert len(demo['obs']) == len(demo['actions']) + 1\n"
+        "import furniture_tpu_torch.rl as rl, furniture_tpu_torch.planning.ilqr\n"
+        "import furniture_tpu_torch.utils.checkpoint, furniture_tpu_torch.tools.train_rl\n"
+        "from furniture_tpu_torch.planning import flatten_env_dynamics\n"
+        "f, x0, unravel = flatten_env_dynamics(env, s, substeps=1)\n"
+        "assert torch.isfinite(f(x0[None], torch.zeros(1, 15))).all()\n"
+        "init, train = rl.make_ppo(env, rl.PPOConfig(num_envs=2, rollout_len=1, epochs=1,\n"
+        "                                            num_minibatches=1, hidden=(8, 8)))\n"
+        "st, m = train(init(0))\n"
+        "assert torch.isfinite(m['loss'])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'furniture_tpu' or m.startswith('furniture_tpu.')]\n"
         "print('LOADED', bad)\n"
