@@ -26,10 +26,15 @@ toy-table flip (``envs.baxter_toytable``), with the demo recorder and loader
 (``utils.demo``) and the native trajectory store (``utils.traj_store``); the
 iLQR planner (``planning.ilqr``) and the single-device RL/IL stack (``rl``:
 BC, PPO, SAC, GAIL, evaluation; ``utils.checkpoint``; the CLI
-``python -m furniture_tpu_torch.tools.train_rl``).
+``python -m furniture_tpu_torch.tools.train_rl``); data parallelism over
+several devices with ``torch.distributed`` (``parallel``: sharded PPO and
+GAIL through ``make_ppo(..., mesh=)``, ``make_sharded_mppi``, ``train_rl
+--mesh``); the ray-cast renderer (``render``, camera observations) and the
+single-env wrapper ``make_env``; ``utils.info_dict`` and
+``utils.video_recorder``.
 """
 
-from .api import make_vec_env  # noqa: F401
+from .api import make_env, make_vec_env  # noqa: F401
 from .config import EnvConfig  # noqa: F401
 from .envs.arm import ArmEnv  # noqa: F401
 from .envs.cursor import CursorEnv  # noqa: F401

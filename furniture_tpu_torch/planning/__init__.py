@@ -1,13 +1,12 @@
 """Planners over the batched env step: MPPI, CEM and iLQR.
 
-The port's counterpart of ``furniture_tpu.planning`` without
-``make_sharded_mppi`` (it needs the multi-device layer), which is not
-ported yet.
+The port's counterpart of ``furniture_tpu.planning``; ``make_sharded_mppi``
+splits MPPI's samples over the ranks of a ``parallel.Mesh``.
 """
 
 from .cem import CEMConfig, make_cem
 from .ilqr import ILQRConfig, flatten_env_dynamics, make_ilqr
-from .mppi import MPPIConfig, assembly_cost, make_mppi, rollout_costs
+from .mppi import MPPIConfig, assembly_cost, make_mppi, make_sharded_mppi, rollout_costs
 
 __all__ = [
     "CEMConfig",
@@ -18,5 +17,6 @@ __all__ = [
     "make_cem",
     "make_ilqr",
     "make_mppi",
+    "make_sharded_mppi",
     "rollout_costs",
 ]

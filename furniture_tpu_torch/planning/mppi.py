@@ -5,7 +5,8 @@ samples N action sequences around the current mean, rolls all of them out
 through ``env.step_batch`` with the sample axis as the batch axis (so the
 physics kernels carry the planner's inner loop), softmax-weights the
 returns and updates the mean. Everything stays on the env's device; a plan
-step has no host synchronisation.
+step has no host synchronisation. ``make_sharded_mppi`` splits the samples
+over the ranks of a :class:`~furniture_tpu_torch.parallel.Mesh`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from .. import transforms as T
 from ..envs.assembly import rows
 from ..envs.cursor import _unsqueeze
+from ..parallel.mesh import mpi_min, mpi_sum, shard_batch
 
 
 @dataclass(frozen=True)
@@ -88,23 +90,59 @@ def rollout_costs(env, cost_fn, state, samples, gamma: float = 1.0):
     return total
 
 
+def _noise(cfg: MPPIConfig, dof: int, mean, generator, noise):
+    """``noise`` [S,H,dof] checked, or ``sigma``-scaled normal noise drawn
+    from ``generator``."""
+    want = (cfg.n_samples, cfg.horizon, dof)
+    if noise is None:
+        return torch.randn(want, generator=generator, device=mean.device) * cfg.sigma
+    if tuple(noise.shape) != want:
+        raise ValueError(f"noise: want {want}, got {tuple(noise.shape)}")
+    return noise
+
+
 def make_mppi(env, cfg: MPPIConfig, cost_fn=None):
     """MPPI plan step ``plan(state, mean [H,dof], generator, noise=None) ->
     (new_mean, info)``. ``noise`` [S,H,dof], when given, replaces the draw
     of ``sigma``-scaled normal noise from ``generator``."""
     cost_fn = cost_fn or assembly_cost(env)
-    H, S, dof = cfg.horizon, cfg.n_samples, env.dof
 
     def plan(state, mean, generator, noise=None):
-        if noise is None:
-            noise = torch.randn((S, H, dof), generator=generator, device=mean.device) * cfg.sigma
-        elif tuple(noise.shape) != (S, H, dof):
-            raise ValueError(f"noise: want {(S, H, dof)}, got {tuple(noise.shape)}")
+        noise = _noise(cfg, env.dof, mean, generator, noise)
         samples = torch.clamp(mean[None] + noise, -1.0, 1.0)
         costs = rollout_costs(env, cost_fn, state, samples, cfg.gamma)   # [S]
         w = torch.softmax(-costs / cfg.temperature, dim=0)
         new_mean = torch.einsum("s,shd->hd", w, samples)
         info = {"best_cost": costs.min(), "mean_cost": costs.mean(), "costs": costs}
         return new_mean, info
+
+    return plan
+
+
+def make_sharded_mppi(env, cfg: MPPIConfig, mesh, cost_fn=None):
+    """MPPI with the sample axis split over the ranks of ``mesh``:
+    ``plan(state, mean [H,dof], generator, noise=None) -> (new_mean,
+    {"best_cost"})``, the same on every rank.
+
+    Every rank draws the full ``[S,H,dof]`` noise from ``generator`` (seed
+    it alike on every rank) or takes ``noise``, and rolls out its ``S/n``
+    rows of it through ``env.step_batch``. The softmax over all ``S`` costs
+    is reduced across the ranks as the JAX package reduces it
+    (``furniture_tpu/planning/mppi.py:146-154``): a MIN of the minimum cost,
+    a SUM of the exponentials, a SUM of the weighted means. ``best_cost`` is
+    that minimum."""
+    cost_fn = cost_fn or assembly_cost(env)
+    if cfg.n_samples % mesh.world_size:
+        raise ValueError(f"n_samples {cfg.n_samples} must divide over {mesh.world_size} ranks")
+
+    def plan(state, mean, generator, noise=None):
+        noise = shard_batch(mesh, _noise(cfg, env.dof, mean, generator, noise))
+        samples = torch.clamp(mean[None] + noise, -1.0, 1.0)             # [S/n,H,dof]
+        costs = rollout_costs(env, cost_fn, state, samples, cfg.gamma)
+        global_min = mpi_min(mesh, costs.min())
+        e = torch.exp(-(costs - global_min) / cfg.temperature)
+        w = e / mpi_sum(mesh, e.sum())
+        new_mean = mpi_sum(mesh, torch.einsum("s,shd->hd", w, samples))
+        return new_mean, {"best_cost": global_min}
 
     return plan

@@ -1,10 +1,10 @@
 """RL and IL training stack (BC, PPO, SAC, GAIL) on the batched env step.
 
-The port's counterpart of ``furniture_tpu.rl`` on one device: the
-algorithms roll out through ``step_batch`` (so the physics kernels carry
-the env steps), the networks are ``nn.Module``s, and the optimizer is
-optax's Adam rule (``networks.ClippedAdam``). The reference's mesh
-data-parallelism waits for the multi-device layer.
+The port's counterpart of ``furniture_tpu.rl``: the algorithms roll out
+through ``step_batch`` (so the physics kernels carry the env steps), the
+networks are ``nn.Module``s, and the optimizer is optax's Adam rule
+(``networks.ClippedAdam``). PPO and GAIL take a ``parallel.Mesh`` for data
+parallelism over several devices (``make_ppo(..., mesh=)``).
 
 Entry point: ``python -m furniture_tpu_torch.tools.train_rl``.
 """

@@ -10,11 +10,13 @@ gradient penalty on interpolates (``torch.autograd.grad`` with
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
+from ..parallel.mesh import broadcast_module, gather_batch
 from . import networks as N
 from .ppo import PPOConfig, make_ppo
 
@@ -35,7 +37,8 @@ class DiscState(NamedTuple):
     generator: torch.Generator
 
 
-def make_gail(env, ppo_cfg: PPOConfig, gail_cfg: GAILConfig, expert_obs, expert_act):
+def make_gail(env, ppo_cfg: PPOConfig, gail_cfg: GAILConfig, expert_obs, expert_act,
+              mesh=None):
     """Returns ``(init, disc_reward, disc_update, make_ppo)``.
 
     ``init(seed) -> (DiscState, policy_seed)``: the discriminator drawn from
@@ -44,7 +47,14 @@ def make_gail(env, ppo_cfg: PPOConfig, gail_cfg: GAILConfig, expert_obs, expert_
     is a ``reward_fn`` for :func:`make_ppo`. ``disc_update(state,
     policy_obs, policy_act) -> (state, metrics)`` runs ``disc_updates``
     steps on random (expert, policy) batches; ``disc_update.loss(params,
-    expert_x, policy_x, eps) -> (loss, aux)`` is the loss of one batch."""
+    expert_x, policy_x, eps) -> (loss, aux)`` is the loss of one batch.
+
+    With ``mesh`` (a ``parallel.Mesh``), the returned ``make_ppo`` has the
+    mesh bound, ``init`` broadcasts rank 0's discriminator, and
+    ``disc_update`` first gathers every rank's policy batch, so each rank
+    runs the same steps on the same global batch (as the JAX package's
+    ``disc_update`` sees the global arrays) and the discriminator stays
+    identical on every rank (seed ``init`` alike on every rank)."""
     dev = env.device
     expert = torch.cat(
         [torch.as_tensor(expert_obs, dtype=torch.float32),
@@ -67,6 +77,8 @@ def make_gail(env, ppo_cfg: PPOConfig, gail_cfg: GAILConfig, expert_obs, expert_
     def init(seed: int):
         wg = torch.Generator().manual_seed(seed)
         params = N.MLP((in_d, *gail_cfg.hidden, 1), "relu", 1.0, wg, dev)
+        if mesh is not None:
+            broadcast_module(mesh, params)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         policy_seed = int(torch.randint(2**31 - 1, (1,), generator=wg))
@@ -91,6 +103,8 @@ def make_gail(env, ppo_cfg: PPOConfig, gail_cfg: GAILConfig, expert_obs, expert_
 
     def disc_update(state: DiscState, policy_obs, policy_act):
         policy_x = torch.cat([policy_obs, policy_act], -1).to(dev)
+        if mesh is not None:
+            policy_x = gather_batch(mesh, policy_x)
         aux = []
         for _ in range(gail_cfg.disc_updates):
             bs = gail_cfg.batch_size
@@ -105,4 +119,4 @@ def make_gail(env, ppo_cfg: PPOConfig, gail_cfg: GAILConfig, expert_obs, expert_
         return state, {k: torch.stack([a[k] for a in aux]).mean() for k in aux[0]}
 
     disc_update.loss = disc_loss
-    return init, disc_reward, disc_update, make_ppo
+    return init, disc_reward, disc_update, make_ppo if mesh is None else partial(make_ppo, mesh=mesh)

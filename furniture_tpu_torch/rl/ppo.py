@@ -1,11 +1,12 @@
 """PPO on the batched env: rollouts through ``step_batch``, GAE, clipped
 policy and value losses, epochs of minibatch updates.
 
-The port's counterpart of ``furniture_tpu.rl.ppo`` on one device (the
-reference's ``mesh=`` branch waits for the multi-device layer). A rollout
-steps all ``num_envs`` lanes at once through ``env.step_batch``, so on the
-card every env step is one launch of the physics kernel; everything stays
-on the env's device.
+The port's counterpart of ``furniture_tpu.rl.ppo``. A rollout steps all
+of a device's lanes at once through ``env.step_batch``, so on the card
+every env step is one launch of the physics kernel; everything stays on the
+env's device. With a ``parallel.Mesh`` each rank steps ``num_envs / n``
+lanes, and the JAX package's ``shard_map`` reductions become
+``all_reduce`` calls at the same points (below).
 
 Auto-reset: the reference resets every lane on every step and selects the
 fresh state where a lane finished. A reset here costs kernel launches (the
@@ -24,6 +25,7 @@ import torch
 from torch import nn
 
 from ..envs.assembly import tree_where
+from ..parallel.mesh import broadcast_module, fold_seed, mpi_average
 from . import networks as N
 
 
@@ -93,12 +95,33 @@ def gae(traj: Transition, last_value, gamma: float, lam: float):
     return adv, adv + traj.value
 
 
-def make_ppo(env, cfg: PPOConfig = PPOConfig(), reward_fn: Callable | None = None):
+def average_grads(mesh, params: nn.Module) -> None:
+    """Every parameter's gradient replaced by its mean over the ranks: one
+    ``all_reduce`` of all of them, flattened."""
+    grads = [p.grad for p in params.parameters() if p.grad is not None]
+    flat = mpi_average(mesh, torch.cat([g.reshape(-1) for g in grads]))
+    for g, new in zip(grads, torch.split(flat, [g.numel() for g in grads])):
+        g.copy_(new.view_as(g))
+
+
+def make_ppo(env, cfg: PPOConfig = PPOConfig(), reward_fn: Callable | None = None,
+             mesh=None):
     """Build ``(init, train_iter)`` for PPO on a batched env (a
     ``CursorEnv``/``ArmEnv``-style object with ``reset_batch``,
     ``step_batch`` and ``observe``). ``reward_fn(obs_vec, action,
     env_reward)`` optionally overrides the env reward (GAIL plugs its
     discriminator in here).
+
+    With ``mesh`` (a ``parallel.Mesh``; ``num_envs`` must divide over its
+    ranks) each rank steps its ``num_envs / n`` lanes, and the ranks meet
+    where the JAX package's ``shard_map`` does (``rl/ppo.py:173-174, 189,
+    219-220``): the advantages' mean and variance, each minibatch's
+    gradients (mean-reduced before the clip and the Adam step, so the
+    networks and optimizer stay identical on every rank), and the
+    ``reward_per_step`` and ``done_frac`` metrics; the loss metrics are the
+    rank's own. ``init`` broadcasts rank 0's networks. Rank r's generator
+    (rollout draws, resets, minibatch order) is seeded with
+    ``parallel.fold_seed(seed, r)``. Without a mesh nothing of this runs.
 
     ``init(seed) -> PPOState``: networks drawn from a CPU generator seeded
     with ``seed`` (the same networks on every device), the env lanes reset
@@ -113,6 +136,11 @@ def make_ppo(env, cfg: PPOConfig = PPOConfig(), reward_fn: Callable | None = Non
     is the clipped loss of one minibatch.
     """
     B, T = cfg.num_envs, cfg.rollout_len
+    if mesh is not None:
+        if B % mesh.world_size:
+            raise ValueError(f"num_envs {B} must divide over {mesh.world_size} ranks")
+        B //= mesh.world_size                    # this rank's lanes
+    sync = (lambda x: x) if mesh is None else (lambda x: mpi_average(mesh, x))
     dev = env.device
     obs_d, act_d = probe_dims(env)
 
@@ -122,9 +150,11 @@ def make_ppo(env, cfg: PPOConfig = PPOConfig(), reward_fn: Callable | None = Non
             "pi": N.GaussianPolicy(obs_d, act_d, cfg.hidden, wg, dev),
             "vf": N.ValueHead(obs_d, cfg.hidden, wg, dev),
         })
+        if mesh is not None:
+            broadcast_module(mesh, params)
         opt = N.ClippedAdam(params.parameters(), cfg.lr, cfg.max_grad_norm)
         gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen.manual_seed(seed if mesh is None else fold_seed(seed, mesh.rank))
         return PPOState(params, opt, env.reset_batch(B, gen), gen, 0)
 
     @torch.no_grad()
@@ -168,8 +198,8 @@ def make_ppo(env, cfg: PPOConfig = PPOConfig(), reward_fn: Callable | None = Non
         flat = Transition(*(x.reshape((n,) + x.shape[2:]) for x in traj))
         adv, ret = adv.reshape(n), ret.reshape(n)
         if cfg.normalize_adv:
-            m = adv.mean()
-            v = torch.mean((adv - m) ** 2)
+            m = sync(adv.mean())
+            v = sync(torch.mean((adv - m) ** 2))
             adv = (adv - m) * torch.rsqrt(v + 1e-8)
         mb = n // cfg.num_minibatches
         aux = []
@@ -180,6 +210,8 @@ def make_ppo(env, cfg: PPOConfig = PPOConfig(), reward_fn: Callable | None = Non
                 loss, a = loss_fn(params, batch, adv[idx], ret[idx])
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
+                if mesh is not None:
+                    average_grads(mesh, params)
                 opt.step()
                 aux.append(a)
         return {k: torch.stack([a[k] for a in aux]).mean() for k in aux[0]}
@@ -188,8 +220,8 @@ def make_ppo(env, cfg: PPOConfig = PPOConfig(), reward_fn: Callable | None = Non
         env_states, traj, last_value = rollout(state.params, state.env_states, state.generator)
         adv, ret = gae(traj, last_value, cfg.gamma, cfg.lam)
         metrics = update(state.params, state.opt_state, traj, adv, ret, state.generator)
-        metrics["reward_per_step"] = traj.reward.mean()
-        metrics["done_frac"] = traj.done.to(torch.float32).mean()
+        metrics["reward_per_step"] = sync(traj.reward.mean())
+        metrics["done_frac"] = sync(traj.done.to(torch.float32).mean())
         return state._replace(env_states=env_states, step=state.step + 1), metrics
 
     # the two halves of an iteration, for timing them apart

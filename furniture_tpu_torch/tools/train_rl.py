@@ -9,14 +9,25 @@ evaluation lands in ``<run_dir>/result.json``.
 Usage:
   python -m furniture_tpu_torch.tools.train_rl --algo ppo --num_envs 256 --iters 100
 
-``--platform cpu`` runs the kernels' plain versions on the CPU. ``--mesh``
-above 1 (data parallelism over several devices) raises: the multi-device
-layer is not ported yet.
+``--platform cpu`` runs the kernels' plain versions on the CPU.
+
+``--mesh N`` trains PPO or GAIL data-parallel over N devices, one process a
+device, under ``torchrun`` (which sets the process group's address, rank
+and world size)::
+
+  torchrun --nproc_per_node N -m furniture_tpu_torch.tools.train_rl --mesh N --algo ppo
+
+``--num_envs`` is the global lane count; each rank steps its share. Rank 0
+alone writes the metrics, the checkpoints and ``result.json`` and runs the
+evaluation. On a resume every rank takes the networks, optimizer and step
+from the checkpoint and keeps its own freshly reset lanes and its generator
+(the checkpoint holds rank 0's, at the world size it was written at).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -42,7 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--run_dir", default="./runs/default")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel devices (0 or 1 = single-device)")
+                   help="data-parallel devices, one process each under torchrun (0 = no mesh; "
+                        "any N > 0, 1 included, raises without torchrun or a process group)")
     p.add_argument("--platform", default=None,
                    help="device to run on (default: the card; 'cpu' runs the plain versions)")
     p.add_argument("--ckpt_every", type=int, default=50,
@@ -67,11 +79,8 @@ def _load_demos(pattern):
 def train(args):
     """Run what ``args`` (from :func:`parse_args`) ask for: ``(result, env)``,
     the env the algorithm stepped (None for BC)."""
-    if args.mesh > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: data parallelism over several devices is not "
-            "ported yet; run with --mesh 0"
-        )
+    if args.mesh and args.algo not in ("ppo", "gail"):
+        raise ValueError(f"--mesh is data parallelism for ppo and gail, not {args.algo}")
     import torch
 
     from furniture_tpu_torch import rl
@@ -85,11 +94,21 @@ def train(args):
     )
 
     device = resolve_device(args.platform)
+    mesh = None
+    if args.mesh:
+        from furniture_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(args.mesh, device="cpu" if device.type == "cpu" else None)
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
     os.makedirs(args.run_dir, exist_ok=True)
 
-    with open(os.path.join(args.run_dir, "metrics.jsonl"), "a") as metrics_f:
+    with (open(os.path.join(args.run_dir, "metrics.jsonl"), "a") if lead
+          else contextlib.nullcontext()) as metrics_f:
 
         def log(it, m):
+            if not lead:
+                return
             rec = {"iter": it, **{k: float(v) for k, v in m.items()}}
             print(json.dumps(rec), flush=True)
             metrics_f.write(json.dumps(rec) + "\n")
@@ -102,11 +121,12 @@ def train(args):
             path = latest_checkpoint(args.run_dir)
             if path is None:
                 return st, 0
-            print(json.dumps({"resumed_from": path}), flush=True)
+            if lead:
+                print(json.dumps({"resumed_from": path}), flush=True)
             return load_checkpoint(path, st), checkpoint_step(path) + 1
 
         def maybe_ckpt(st, it, last=False):
-            if args.ckpt_every and (last or (it + 1) % args.ckpt_every == 0):
+            if lead and args.ckpt_every and (last or (it + 1) % args.ckpt_every == 0):
                 save_checkpoint(args.run_dir, st, it)
 
         t0 = time.time()
@@ -135,11 +155,12 @@ def train(args):
                 if args.algo == "gail":
                     X, Y = rl.demos_to_dataset(_load_demos(args.demo_path))
                     g_init, disc_reward, disc_update, _ = rl.make_gail(
-                        env, cfg, rl.GAILConfig(), X, Y)
+                        env, cfg, rl.GAILConfig(), X, Y, mesh=mesh)
                     disc_state, seed = g_init(args.seed)
                     reward_fn = lambda o, a, r: disc_reward(disc_state.params)(o, a, r)
-                init, train_iter = rl.make_ppo(env, cfg, reward_fn=reward_fn)
+                init, train_iter = rl.make_ppo(env, cfg, reward_fn=reward_fn, mesh=mesh)
                 st = init(seed)
+                lanes, draws = st.env_states, st.generator.get_state()
                 if args.algo == "gail":
                     # the discriminator is part of the run state: (policy,
                     # disc) checkpoint as one state
@@ -147,6 +168,11 @@ def train(args):
                     st, disc_state = bundle["policy"], bundle["disc"]
                 else:
                     st, start = maybe_resume(st)
+                if mesh is not None:
+                    # the checkpoint holds rank 0's lanes and draws (for the
+                    # world size it was written at): every rank keeps its own
+                    st.generator.set_state(draws)
+                    st = st._replace(env_states=lanes)
                 m = None
                 for it in range(start, args.iters):
                     st, m = train_iter(st)
@@ -171,7 +197,7 @@ def train(args):
                     maybe_ckpt(st, it, last=it == args.iters - 1)
                 act_fn = rl.sac_act
             final = {"reward_per_step": float(m["reward_per_step"])} if m is not None else {}
-            if args.eval_episodes:
+            if args.eval_episodes and lead:
                 eval_fn = rl.make_evaluate(env, act_fn, args.eval_episodes, args.eval_max_steps)
 
         if eval_fn is not None:
@@ -187,17 +213,25 @@ def train(args):
         "furniture_name": args.furniture_name,
         "seed": args.seed,
         "device": str(device),
+        "world_size": 1 if mesh is None else mesh.world_size,
         "wall_s": time.time() - t0,
         **final,
     }
-    with open(os.path.join(args.run_dir, "result.json"), "w") as f:
-        json.dump(result, f, indent=2)
-    print(json.dumps({"result": result}), flush=True)
+    if lead:
+        with open(os.path.join(args.run_dir, "result.json"), "w") as f:
+            json.dump(result, f, indent=2)
+        print(json.dumps({"result": result}), flush=True)
     return result, env
 
 
 def main(argv=None) -> dict:
-    return train(parse_args(argv))[0]
+    import torch.distributed as dist
+
+    try:
+        return train(parse_args(argv))[0]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

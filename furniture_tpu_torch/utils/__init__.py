@@ -1,7 +1,8 @@
 """Host-side utilities of the port: the initial-state pool, demo recording
-and loading, the native trajectory store, the logger and training
-checkpoints."""
+and loading, the native trajectory store, the logger, training
+checkpoints, per-step info aggregation and the video recorder."""
 
-from . import checkpoint, demo, init_pool, logger, traj_store
+from . import checkpoint, demo, info_dict, init_pool, logger, traj_store, video_recorder
 
-__all__ = ["checkpoint", "demo", "init_pool", "logger", "traj_store"]
+__all__ = ["checkpoint", "demo", "info_dict", "init_pool", "logger", "traj_store",
+           "video_recorder"]

@@ -549,5 +549,5 @@ def test_train_rl_ppo_writes_metrics_and_result(tmp_path):
     assert on_disk["algo"] == "ppo" and on_disk["device"] == "cpu"
     assert on_disk == json.loads(json.dumps(result))
     assert os.path.exists(os.path.join(run_dir, "ckpt_0.pt"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):   # no group: never alone
         main(["--algo", "ppo", "--mesh", "2", "--platform", "cpu", "--run_dir", run_dir])

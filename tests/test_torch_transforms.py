@@ -32,8 +32,10 @@ def test_port_imports_no_jax():
     building and stepping the dense and generator envs, one scripted-policy
     decision, loading a committed demo, the iLQR dynamics of the cursor and
     one PPO iteration (with the checkpoint and ``train_rl`` modules
-    imported) loads neither jax nor the JAX package (fresh interpreter:
-    this process has imported jax already)."""
+    imported), the renderer, the multi-device layer and a single-env
+    wrapper reset with a camera observation (``make_env``) loads neither jax
+    nor the JAX package (fresh interpreter: this process has imported jax
+    already)."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -82,6 +84,12 @@ def test_port_imports_no_jax():
         "                                            num_minibatches=1, hidden=(8, 8)))\n"
         "st, m = train(init(0))\n"
         "assert torch.isfinite(m['loss'])\n"
+        "import furniture_tpu_torch.render, furniture_tpu_torch.parallel\n"
+        "import furniture_tpu_torch.utils.video_recorder, furniture_tpu_torch.utils.info_dict\n"
+        "from furniture_tpu_torch.api import make_env\n"
+        "w = make_env('IKEACursor-v0', device='cpu', camera_ob=True, screen_width=16,\n"
+        "             screen_height=16, sim=SimConfig(control_freq=100))\n"
+        "assert w.reset(seed=0)['camera_ob'].shape == (16, 16, 3)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'furniture_tpu' or m.startswith('furniture_tpu.')]\n"
         "print('LOADED', bad)\n"
