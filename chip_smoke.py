@@ -147,12 +147,46 @@ package is imported) on the card:
    over it; kernel 2's maximum within 10x the plain version's own spread
    under 3 draws each of 1e-7 and 1e-6 of position noise, kernel 1's every
    env within 10x the plain version's own spread in that env (20 draws
-   each of 1e-7 and 1e-6 of noise on the positions and quaternions) where
+   each of 1e-7 and 1e-6 of noise on the positions and quaternions and,
+   where a lane of the plain run sits within rounding of the contact
+   threshold, that threshold moved 8 ulp either way: ``hold_free``) where
    that is larger than the bound: the render rollouts' (kernel 2 at 128 envs,
    kernel 1 at 32), the wrapper's (B = 1: kernel 1's two calls, the ik
    step's three kernel-2 calls), the sharded plan's at world size 1 (256
    rows) and rank 0's (128 rows, the plan's ``SimConfig``), and rank 0's
-   PPO rollout's (128 lanes);
+   PPO rollout's (128 lanes); then the whole registry: every furniture
+   model of ``models.furniture_names`` (64) as a ``CursorEnv`` and the six
+   models of ``tests/test_all_furniture_runtime.py``'s arm subset as
+   Sawyer impedance, at that test's ``SimConfig(timestep=0.01,
+   solver_iters=6)`` and 16 envs: reset and 3 steps of its actions, its
+   checks on every env (finite, unit quaternions, above the floor, finite
+   reward and observations), the launches (10 a reset; 2 a cursor step, 1
+   an impedance step), the free-part kernel held against its plain
+   version after 5 substeps from the settled reset and, for the cursor
+   envs, from the stepped state (``hold_free``: every env within 1e-4 or
+   within 10x the plain version's own spread in that env; the median and
+   the count of envs over 1e-4, at most a tenth, taken over the envs where
+   that spread is within 1e-4, since a model's reset can be chaotic in
+   most of its envs), and for the arm envs the arm kernel at each of the
+   3 steps' recorded inputs by the rule above, one
+   ``[sweep]`` line a model (P, K, the routes of kernels 1 and 3 or 2,
+   reset and step ms); the lane solver timed on its two routes at 4096
+   envs and 12 sweeps in turns (one lane a thread on table_lack, global
+   scratch on chair_balser_0115, K = 4153) on a dropped reset's contacts;
+   then each command-line tool of ``furniture_tpu_torch/tools/`` through
+   its ``main()`` with small arguments, outputs in a temporary directory,
+   the launches of the kernel wrappers each tool built counted and each
+   of those kernels held, by the rule above, at the inputs of its last
+   call in the tool (Baxter ik and impedance at 512 envs in ``fps``,
+   the dense Sawyer of ``eval_bc``, the generator of ``profile_gen``,
+   each reset's settle among them): ``run_demo
+   --state_replay`` on a committed demo (its 1,570 states, 4 connects) and
+   action replay of its first 30 actions, ``run_manual`` on a key script
+   with a screenshot, ``eval_bc`` at 5 epochs x 8 episodes x 20 steps,
+   ``fps --all`` at batch 512 (Baxter ik and impedance among its rows),
+   ``resize`` into a temporary asset copy (nothing written into the real
+   one), ``profile_gen`` at 16 envs x 30 steps, and ``profile_cursor`` and
+   ``profile_ilqr`` at their bench sizes, each phase's seconds printed;
 4. times with CUDA events after a warm-up: env steps/s of ``step_batch``
    for the cursor (B = 4096) and for Sawyer impedance (B = 512) and ik
    (B = 256), the cursor and impedance steps as the median of three rounds
@@ -242,6 +276,22 @@ WRAPPER_STEPS, WRAPPER_SIDE = 3, 64
 NOISE_DRAWS = 20    # per noise size, for the plain version's own spread in an env
 MESH_WORLD = 2
 MESH_TIMEOUT_S = 420
+# the whole registry on the card: every furniture model as a cursor env,
+# then tests/test_all_furniture_runtime.py's six-model arm subset as Sawyer
+# impedance, at that test's coarse SimConfig (its _COARSE), reset + 3 steps
+SWEEP_SIM = dict(timestep=0.01, solver_iters=6)
+SWEEP_B = 16
+SWEEP_STEPS = 3
+SWEEP_ARM = ("table_lack_0825", "swivel_chair_0700", "chair_agne_0007", "bench_bjursta_0210",
+             "desk_mikael_1064", "shelf_ivar_0678")
+# kernel 3's two routes timed in turns at the bench batch (default SimConfig,
+# 12 sweeps): one lane a thread on table_lack, global scratch on chair_balser
+LANE_ROUTE_MODELS = ("table_lack_0825", "chair_balser_0115")
+# the port's command-line tools, each main() with small arguments
+TOOL_DEMO = os.path.join("demos", "generated", "Sawyer_table_lack_0825_0000.pkl")
+TOOL_REPLAY_ACTIONS = 30
+TOOL_SCRIPT = "w w e SPACE c t"
+TOOL_GEN = (16, 30)          # profile_gen --batch, --max_steps
 # ms per launch of the two physics kernels before their redesign (n = 50;
 # B = 4096 and B = 512; NVIDIA H100 80GB HBM3, 700.00 W, this script at that
 # time): printed beside the new times, not part of the ``kernels`` line
@@ -383,31 +433,36 @@ class recording:
         self.keep = keep
 
     def __enter__(self):
-        import collections
-
-        import torch
-
-        from furniture_tpu_torch.physics.state import PartState
-
-        calls = collections.deque(maxlen=self.keep)
-        inner = getattr(self.owner, self.name)
-
-        def own(a):
-            if isinstance(a, PartState):
-                return PartState(*map(own, a))
-            return a.clone(memory_format=torch.contiguous_format) if torch.is_tensor(a) else a
-
-        def record(*args):
-            calls.append(tuple(map(own, args)))
-            return inner(*args)
-
-        setattr(self.owner, self.name, record)
-        self.calls = calls
-        return calls
+        return record_calls(self.owner, self.name, self.keep)
 
     def __exit__(self, *exc):
         delattr(self.owner, self.name)
         return False
+
+
+def record_calls(owner, name: str, keep: int):
+    """Replace the method ``owner.name`` by one that also keeps copies of
+    the inputs of its last ``keep`` calls, in the deque returned."""
+    import collections
+
+    import torch
+
+    from furniture_tpu_torch.physics.state import PartState
+
+    calls = collections.deque(maxlen=keep)
+    inner = getattr(owner, name)
+
+    def own(a):
+        if isinstance(a, PartState):
+            return PartState(*map(own, a))
+        return a.clone(memory_format=torch.contiguous_format) if torch.is_tensor(a) else a
+
+    def record(*args):
+        calls.append(tuple(map(own, args)))
+        return inner(*args)
+
+    setattr(owner, name, record)
+    return calls
 
 
 def flat_call(call):
@@ -1010,6 +1065,512 @@ def drive_rl(dev):
     return out
 
 
+def live_state_problem(env, state) -> str | None:
+    """``tests/test_all_furniture_runtime.py``'s ``_assert_live_state`` on
+    every env of a batch: what is wrong, or None."""
+    import torch
+
+    parts = state.parts
+    for f in ("pos", "quat", "lin_vel"):
+        if not torch.isfinite(getattr(parts, f)).all():
+            return f"{f} not finite"
+    if (torch.linalg.norm(parts.quat, dim=-1) - 1.0).abs().max().item() > 1e-3:
+        return "quaternions not unit"
+    zmin = parts.pos[..., 2].min().item()
+    if not zmin > -float(env.model.geom_size.max()) - 0.02:
+        return f"a part center sank below the floor (z={zmin:.3f})"
+    return None
+
+
+def env_max(x, y):
+    """max |x - y| in each env over the tensors of two sequences: [B]."""
+    import torch
+
+    B = x[0].shape[0]
+    return torch.stack([(u - v.to(u.device)).abs().reshape(B, -1).amax(-1) for u, v in zip(x, y)]).amax(0)
+
+
+def pose_noise(parts, mag: float, seed: int):
+    """``parts`` with uniform noise of ``mag`` on the positions and the
+    quaternions (renormalised), drawn from ``seed``."""
+    import torch
+
+    dev = parts.pos.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    eps = (torch.rand(parts.pos.shape, generator=g, device=dev) - 0.5) * 2 * mag
+    q = parts.quat + (torch.rand(parts.quat.shape, generator=g, device=dev) - 0.5) * 2 * mag
+    return parts._replace(pos=parts.pos + eps, quat=q / torch.linalg.norm(q, dim=-1, keepdim=True))
+
+
+def contact_ties(phys, parts, group, gscale, n: int):
+    """[B] bool: the envs where, in some substep of the plain run, a lane's
+    depth lies within 4 float32 ulp (of the largest coordinate of the env's
+    parts) of the contact threshold ``-slop``, over the floor lanes and every
+    lane whose geometric mask is set. Whether such a lane acts is decided by
+    rounding, which no noise on the poses moves when the floor projection
+    pins the lane there (a plate whose half thickness equals the slop,
+    lifted onto its deepest corner each substep)."""
+    import torch
+
+    sub, slop = phys._plain, phys.cfg.contact_slop
+    B, dev = parts.pos.shape[0], parts.pos.device
+    lam = torch.zeros((B, sub.n_base_lanes, 3), device=dev)
+    margin = torch.full((B,), float("inf"), device=dev)
+    st = parts
+    for _ in range(n):
+        c = sub.solver_args(st, group, gscale)[1][0]
+        held = c.mask | (torch.arange(c.depth.shape[1], device=dev) < phys.Kf)
+        gap = torch.where(held, (c.depth + slop).abs(), torch.full_like(c.depth, float("inf")))
+        margin = torch.minimum(margin, gap.amin(-1))
+        st, lam = sub(st, group, gscale, lam)
+    return margin < 4 * torch.finfo(torch.float32).eps * parts.pos.abs().reshape(B, -1).amax(-1)
+
+
+def hold_free(phys, parts, group, gscale, n: int, tol: float, chaotic: bool = False) -> dict:
+    """The free-part kernel against its plain version after ``n`` substeps,
+    env by env. Each env is held to ``tol`` or to 10x the plain version's own
+    spread in that env, the larger: the largest change of the plain result
+    under ``NOISE_DRAWS`` draws each of 1e-7 and 1e-6 of pose noise and, in
+    an env with a lane on the contact threshold (``contact_ties``), under
+    the threshold moved by 8 ulp either way, which decides that lane each
+    way. The median over the envs is held to ``tol``, and at most a tenth of
+    them may exceed it; with ``chaotic`` these two limits count only the
+    envs whose own spread is within ``tol`` (in the others the plain version
+    itself is chaotic at that bound). The spread is measured only where an
+    env exceeds ``tol``: otherwise every limit holds whatever it is. The
+    outputs must be finite and two launches bit-identical. These launches
+    are measurements, not the path's. Returns the numbers and ``problem``,
+    the first limit broken, or None."""
+    import dataclasses
+
+    import torch
+
+    from furniture_tpu_torch.physics import engine
+    from furniture_tpu_torch.physics.state import PartState
+
+    parts = PartState(*(t.contiguous() for t in parts))
+    group, gscale = group.contiguous(), gscale.contiguous()
+    B = parts.pos.shape[0]
+    ref = phys.plain_substeps(parts, group, gscale, n)
+    out = phys.kernel_substeps(parts, group, gscale, n)
+    again = phys.kernel_substeps(parts, group, gscale, n)
+    torch.cuda.synchronize()
+    env_err = env_max(ref, out)
+    spread, ties = None, torch.zeros_like(env_err, dtype=torch.bool)
+    bound = torch.full_like(env_err, tol)
+    if bool((env_err > tol).any()):
+        spread = torch.zeros_like(env_err)
+        for mag in (1e-7, 1e-6):
+            for seed in range(NOISE_DRAWS):
+                spread = torch.maximum(spread, env_max(ref, phys.plain_substeps(
+                    pose_noise(parts, mag, 100 + seed), group, gscale, n)))
+        ties = contact_ties(phys, parts, group, gscale, n)
+        if bool(ties.any()):
+            slop = phys.cfg.contact_slop
+            d = 8 * torch.finfo(torch.float32).eps * parts.pos.abs().max().item()
+            for s in (slop - d, slop + d):
+                moved = engine.make_substep(phys.model_np, dataclasses.replace(
+                    phys.cfg, contact_slop=s, use_pallas="off"), phys.device)
+                spread = torch.where(ties, torch.maximum(spread, env_max(
+                    ref, engine.substeps(moved, parts, group, gscale, n))), spread)
+        bound = torch.clamp(10 * spread, min=tol)
+    counted = spread <= tol if chaotic and spread is not None else torch.ones_like(ties)
+    med = env_err[counted].median().item() if bool(counted.any()) else 0.0
+    over = int((env_err[counted] > tol).sum())
+    i = int(torch.argmax(env_err / bound))
+    h = {"n": n, "tol": tol, "err": env_err.max().item(), "median": med, "envs_over": over,
+         "envs_counted": int(counted.sum()), "env": i, "env_err": env_err[i].item(),
+         "env_spread": None if spread is None else spread[i].item(), "bound": bound[i].item(),
+         "bound_max": bound.max().item(), "spread": None if spread is None else spread.max().item(),
+         "tie_envs": int(ties.sum()), "chaotic_envs": B - int(counted.sum()),
+         "per": {f: round(max_err([a], [b]), 9) for f, a, b in zip(PartState._fields, ref, out)},
+         "problem": None}
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        h["problem"] = "kernel output not finite"
+    elif not same_bits(out, again):
+        h["problem"] = "two launches on one input differ"
+    elif not med <= tol:
+        h["problem"] = f"median error {med} > {tol}"
+    elif over > B // 10:
+        h["problem"] = f"{over} envs over {tol}"
+    elif not bool((env_err <= bound).all()):
+        h["problem"] = (f"env {i} disagrees by {env_err[i].item()}, over {tol} and over 10x the plain "
+                        f"version's own spread there ({h['env_spread']})")
+    return h
+
+
+def free_note(h: dict) -> str:
+    """``hold_free``'s numbers for a ``[check]`` line."""
+    B = h["envs_counted"] + h["chaotic_envs"]
+    if h["spread"] is None:
+        return f"bound {h['tol']:.3g} in every env, median {h['median']:.3g}"
+    return (f"bound per env {h['tol']:.3g} or 10x its own spread, at most {h['bound_max']:.3g}; median "
+            f"{h['median']:.3g}, {h['envs_over']} over {h['tol']:.3g}, of the {h['envs_counted']} of {B} envs "
+            f"where the plain version's own spread is within the bound" if h["chaotic_envs"] else
+            f"bound per env {h['tol']:.3g} or 10x its own spread, at most {h['bound_max']:.3g}; median "
+            f"{h['median']:.3g} (bound {h['tol']:.3g}), {h['envs_over']} of {B} envs over {h['tol']:.3g}") + (
+        f"; the plain version's own spread, the largest in an env: {h['spread']:.3g} under {NOISE_DRAWS} "
+        f"draws each of 1e-7 and 1e-6 of pose noise"
+        + (f" and, in the {h['tie_envs']} envs with a lane on the contact threshold, that threshold moved "
+           f"8 ulp either way" if h["tie_envs"] else "")
+        + f"; the env nearest its bound, {h['env']}: {h['env_err']:.3g} against its own spread "
+        f"{h['env_spread']:.3g}")
+
+
+ARM_FIELDS = ("pos", "quat", "lin_vel", "ang_vel", "qpos", "qvel")
+
+
+def arm_per_env(a, b):
+    """max |a - b| per env and field of two arm results: {field: [B]}."""
+    B = a[1].shape[0]
+    pairs = list(zip(a[0], b[0])) + [(a[1], b[1]), (a[2], b[2])]
+    return {f: (x - y).abs().reshape(B, -1).amax(-1) for f, (x, y) in zip(ARM_FIELDS, pairs)}
+
+
+def hold_arm_call(ph, args, n: int, tol: float, pinched: bool) -> dict:
+    """The arm kernel against its plain version after ``n`` substeps from
+    ``args``, the inputs of one ``control_step`` call but its ``n``. The
+    outputs must be finite, two launches bit-identical and the touch flags
+    equal. Plain, the maximum is held to ``tol``. A ``pinched`` case is
+    ill-conditioned in a few envs: its median over the envs is held to
+    ``tol``, at most a tenth of the envs may exceed it, and its maximum is
+    held to 10x the plain version's own spread under three draws each of
+    1e-7 and 1e-6 of position noise, measured only where an env exceeds
+    ``tol``. Returns the numbers and ``problem``, the first limit broken,
+    or None."""
+    import torch
+
+    args = tuple(args) + (n,)
+    B = args[3].shape[0]
+    ref = ph.plain_control_step(*args)
+    out = ph.kernel_control_step(*args)
+    again = ph.kernel_control_step(*args)
+    torch.cuda.synchronize()
+    errs = arm_per_env(ref, out)
+    env_err = torch.stack(list(errs.values())).amax(0)
+    err = env_err.max().item()
+    med = max(v.median().item() for v in errs.values())
+    h = {"n": n, "tol": tol, "B": B, "pinched": pinched, "err": err, "median": med,
+         "envs_over": int((env_err > tol).sum()), "spreads": None, "bound": tol,
+         "n_touch": int(out[3].sum()), "per": {f: round(v.max().item(), 9) for f, v in errs.items()},
+         "problem": None}
+    if pinched and err > tol:
+        # one substep of summing ~1000 lanes in another order already
+        # moves the velocities by up to 7e-5, which 1e-7 of position noise
+        # does not always reproduce: hence also 1e-6
+        spreads = {}
+        for mag in (1e-7, 1e-6):
+            worst = 0.0
+            for seed in (7, 8, 9):
+                g = torch.Generator(device=args[0].pos.device)
+                g.manual_seed(seed)
+                eps = (torch.rand(args[0].pos.shape, generator=g, device=g.device) - 0.5) * 2 * mag
+                ref2 = ph.plain_control_step(args[0]._replace(pos=args[0].pos + eps), *args[1:])
+                worst = max(worst, max(v.max().item() for v in arm_per_env(ref, ref2).values()))
+            spreads[mag] = worst
+        h["spreads"] = spreads
+        h["bound"] = max(tol, 10 * max(spreads.values()))
+    if not all(bool(torch.isfinite(t).all()) for t in list(out[0]) + [out[1], out[2]]):
+        h["problem"] = "arm kernel output not finite"
+    elif not same_bits(list(out[0]) + list(out[1:]), list(again[0]) + list(again[1:])):
+        h["problem"] = "two launches of the arm kernel on one input differ"
+    elif not torch.equal(ref[3], out[3]):
+        h["problem"] = "touch flags differ between arm kernel and plain version"
+    elif pinched and not med <= tol:
+        h["problem"] = f"median error {med} > {tol}"
+    elif pinched and h["envs_over"] > B // 10:
+        h["problem"] = f"{h['envs_over']} envs over {tol}"
+    elif not err <= h["bound"]:
+        h["problem"] = f"arm kernel disagrees with its plain version ({err} > {h['bound']})"
+    return h
+
+
+def arm_note(h: dict) -> str:
+    """``hold_arm_call``'s numbers for a ``[check]`` line."""
+    note = f"bound {h['bound']:.3g}"
+    if h["pinched"]:
+        note += (f", median over envs {h['median']:.3g} (bound {h['tol']:.3g}), {h['envs_over']} of {h['B']} "
+                 f"envs over {h['tol']:.3g}")
+        if h["spreads"]:
+            note += (f", plain vs plain(pos + noise) {h['spreads'][1e-7]:.3g} at 1e-7 and "
+                     f"{h['spreads'][1e-6]:.3g} at 1e-6")
+    return note + f", touch flags equal, {h['n_touch']} set"
+
+
+def recorded_checks(call):
+    """The (n, tol) checks of one recorded physics call at phase 2's bounds:
+    after 5 substeps (n where n <= 5) and after the call's own n."""
+    n, arm = call[-1], len(call) == 10
+    short, full = (5e-4, 1e-3) if arm else (1e-4, 1e-3)
+    return ((n, short),) if n <= 5 else ((5, short), (n, full))
+
+
+def hold_call(phys, call) -> list:
+    """The kernel of a recorded call against its plain version at
+    ``recorded_checks``: kernel 2 for an arm call (``hold_arm_call``, pinched),
+    kernel 1 for a free-part call (``hold_free``). A list of results."""
+    if len(call) == 10:
+        return [hold_arm_call(phys, call[:-1], n, tol, True) for n, tol in recorded_checks(call)]
+    return [hold_free(phys, *call[:3], n, tol) for n, tol in recorded_checks(call)]
+
+
+def hold_line(tag: str, h: dict) -> str:
+    """A ``[check]`` line for one result of ``hold_call``."""
+    arm = "n_touch" in h
+    return (f"[check] {'arm ' if arm else ''}{tag} n={h['n']}: max|kernel-plain| {h['err']:.3g} "
+            f"({arm_note(h) if arm else free_note(h)}), repeat bit-identical {h['per']}")
+
+
+def drive_sweep(dev):
+    """Every furniture model of the registry as a ``CursorEnv`` on the card,
+    then the arm subset as Sawyer impedance, at ``SWEEP_SIM`` and B =
+    ``SWEEP_B``: reset, ``SWEEP_STEPS`` steps of
+    ``tests/test_all_furniture_runtime.py``'s actions, its checks on every
+    env, and the kernels' launches (read before the holds). Then each
+    kernel of the model's path against its plain version: kernel 1 after 5
+    substeps from the settled reset and, for the cursor envs, from the
+    stepped state (``hold_free``, ``chaotic``: a model's reset may be
+    chaotic in most of its envs); for the arm envs kernel 2 at each step's
+    own inputs (``recording``, ``hold_call``). One row a model."""
+    import contextlib
+
+    import torch
+
+    from furniture_tpu_torch.config import EnvConfig, SimConfig
+    from furniture_tpu_torch.envs.arm import ArmEnv
+    from furniture_tpu_torch.envs.cursor import CursorEnv
+    from furniture_tpu_torch.models import furniture_names
+    from furniture_tpu_torch.physics import engine, lane_solver
+
+    sim = SimConfig(**SWEEP_SIM)
+    gen = torch.Generator(device=dev)
+    rows = []
+    for agent, name in [("Cursor", n) for n in furniture_names] + [("Sawyer", n) for n in SWEEP_ARM]:
+        t0 = time.perf_counter()
+        if agent == "Cursor":
+            env = CursorEnv(EnvConfig(furniture_name=name, sim=sim), device=dev)
+            free = env.physics
+            lane = engine.make_substep(engine.physics_tables(env.model),
+                                       SimConfig(**SWEEP_SIM, use_pallas="lane"), dev).lane_tables
+            routes = {"kernel 3": lane_solver.ROUTE_NAMES[lane.route]}
+        else:
+            env = ArmEnv(EnvConfig(agent_type="Sawyer", control_type="impedance", furniture_name=name,
+                                   sim=sim), device=dev)
+            free = env._settle_physics
+            routes = {"kernel 2": "shared memory" if env.physics.lane_buffer()[2] else "global scratch"}
+        _, _, in_smem, regs = free.lane_buffer()
+        routes["kernel 1"] = "registers" if regs else ("shared memory" if in_smem else "global scratch")
+        build_s = time.perf_counter() - t0
+        gen.manual_seed(3)
+        state, reset_s = _timed(lambda: env.reset_batch(SWEEP_B, gen))
+        problem = live_state_problem(env, state)
+        action = torch.zeros((SWEEP_B, env.dof), device=dev)
+        if agent == "Cursor":
+            action[:, 0], action[:, 2] = 0.5, 0.2
+        else:
+            action[:, -2] = -1.0
+        rew_finite = obs_finite = True
+        reset_state = state
+        arm = agent != "Cursor"
+        with recording(env, keep=SWEEP_STEPS) if arm else contextlib.nullcontext(()) as calls:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(SWEEP_STEPS):
+                state, obs, rew, done, info = env.step_batch(state, action)
+                rew_finite &= bool(torch.isfinite(rew).all())
+                obs_finite &= all(bool(torch.isfinite(v.float()).all()) for v in obs.values())
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t) / SWEEP_STEPS * 1e3
+        problem = problem or live_state_problem(env, state)
+        if arm and not torch.isfinite(state.qpos).all():
+            problem = problem or "qpos not finite"
+        row = {"agent": agent, "name": name, "P": env._P, "K": free.K, "routes": routes,
+               "build_s": build_s, "reset_ms": reset_s * 1e3, "step_ms": step_ms,
+               "free_launches": free.launches, "arm_launches": env.physics.launches if arm else 0,
+               "arm_K": env.physics.K if arm else None,
+               "problem": problem, "reward_finite": rew_finite, "obs_finite": obs_finite}
+        ones = torch.ones((SWEEP_B, env._P), device=dev)
+        holds = [("kernel 1 from the reset", hold_free(free, reset_state.parts, reset_state.group, ones, 5,
+                                                       1e-4, chaotic=True))]
+        if not arm:
+            holds.append(("kernel 1 from the stepped state", hold_free(free, state.parts, state.group, ones, 5,
+                                                                       1e-4, chaotic=True)))
+        else:
+            holds += [(f"kernel 2 at step {k + 1}'s inputs", h)
+                      for k, call in enumerate(calls) for h in hold_call(env.physics, call)]
+        row["holds"] = holds
+        row["recorded"] = len(calls)
+        rows.append(row)
+    return rows
+
+
+def time_lane_routes(dev) -> dict:
+    """Kernel 3 on each model of ``LANE_ROUTE_MODELS`` at B = ``MAIN_B``,
+    default ``SimConfig`` (12 sweeps), on the contacts of a settled reset
+    dropped onto the floor by 50 free-part substeps (gravity on): its route,
+    the lanes in contact, the bound of this data's work, and its ms a
+    launch, timed in turns (first, second, second, first) by CUDA events."""
+    import torch
+
+    from furniture_tpu_torch.config import EnvConfig, SimConfig
+    from furniture_tpu_torch.envs.cursor import CursorEnv
+    from furniture_tpu_torch.physics import engine, lane_solver
+    from furniture_tpu_torch.physics.megakernel import make_batched_substeps
+    from furniture_tpu_torch.physics.state import PartState
+
+    gen = torch.Generator(device=dev)
+    cases = {}
+    for name in LANE_ROUTE_MODELS:
+        env = CursorEnv(EnvConfig(furniture_name=name), device=dev)
+        gen.manual_seed(3)
+        st = env.reset_batch(MAIN_B, gen)
+        ones = torch.ones((MAIN_B, env._P), device=dev)
+        group = st.group.contiguous()
+        parts = env.physics.substeps(PartState(*(t.contiguous() for t in st.parts)), group, ones, 50)
+        lphys = make_batched_substeps(engine.physics_tables(env.model), SimConfig(use_pallas="lane"), dev)
+        args = lphys.solver_args(PartState(*(t.contiguous() for t in parts)), group, ones)
+        tables = lphys.lane_tables
+        c = args[0]
+        K, P, iters = c.depth.shape[1], env._P, args[8]
+        K_b = int((c.part_b >= 0).sum())
+        live = c.mask & (c.depth > -args[10])
+        mask_env, act_env = c.mask.sum(-1).tolist(), live.sum(-1).tolist()
+        actb_env = (live & (c.part_b >= 0)).sum(-1).tolist()
+        ops = sum(lane_solver.fp32_ops_per_env(K, K_b, P, iters, a, ab) for a, ab in zip(act_env, actb_env))
+        nbytes = sum(lane_solver.bytes_per_env(K, P, m, a) for m, a in zip(mask_env, act_env)) \
+            + tables.table_bytes()
+        t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        lane_solver.launch(tables, *args)  # warm-up
+        cases[name] = {"K": K, "P": P, "sweeps": iters, "route": lane_solver.ROUTE_NAMES[tables.route],
+                       "lanes_with_contact": sum(act_env), "lanes_with_mask_set": sum(mask_env),
+                       "ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ms": [],
+                       "run": (tables, args)}
+    for name in list(LANE_ROUTE_MODELS) + list(reversed(LANE_ROUTE_MODELS)):
+        tables, args = cases[name]["run"]
+        cases[name]["ms"].append(cuda_ms(lambda: lane_solver.launch(tables, *args), 20))
+    for case in cases.values():
+        del case["run"]
+    return cases
+
+
+class made_objects:
+    """``with made_objects({A: "method"}) as made:`` appends to ``made[A]``
+    every object of class ``A`` made inside the block, as ``(obj, calls)``,
+    where ``calls`` keeps the inputs of the object's last call of
+    ``method`` (``record_calls``): how a tool phase finds the kernel
+    wrappers of the envs a tool builds for itself, each with its
+    ``launches`` count from 0, and the inputs each kernel last had."""
+
+    def __init__(self, methods: dict):
+        self.methods = methods
+
+    def __enter__(self):
+        self.made = {c: [] for c in self.methods}
+        self.inits = {c: c.__init__ for c in self.methods}
+        for c, init in self.inits.items():
+            def wrapped(obj, *args, _init=init, _c=c, **kw):
+                _init(obj, *args, **kw)
+                self.made[_c].append((obj, record_calls(obj, self.methods[_c], 1)))
+            c.__init__ = wrapped
+        return self.made
+
+    def __exit__(self, *exc):
+        for c, init in self.inits.items():
+            c.__init__ = init
+        return False
+
+
+def drive_tools(dev) -> dict:
+    """Each command-line tool of the port through its ``main()`` on the card
+    with small arguments, its outputs in a temporary directory: ``run_demo``
+    (state replay of a committed demo; action replay of a copy cut to its
+    first ``TOOL_REPLAY_ACTIONS`` actions), ``run_manual`` on a key script,
+    ``eval_bc`` at 5 epochs x 8 episodes x 20 steps, ``fps --all`` at its
+    default batch, ``resize`` into a temporary asset copy, ``profile_gen``
+    at ``TOOL_GEN``, and ``profile_cursor`` and ``profile_ilqr`` at their
+    bench sizes. Per tool: seconds, stdout, what ``main`` returned, the
+    launches of the kernel wrappers the tool made (``made_objects``), and
+    then each of those kernels held against its plain version at the
+    inputs of its last call in the tool (``hold_call``)."""
+    import contextlib
+    import io
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    from furniture_tpu_torch import models
+    from furniture_tpu_torch.models import compiler
+    from furniture_tpu_torch.physics.arm_megakernel import ArmMegaPhysics
+    from furniture_tpu_torch.physics.megakernel import MegaPhysics
+    from furniture_tpu_torch.tools import (
+        eval_bc, fps, profile_cursor, profile_gen, profile_ilqr, resize, run_demo, run_manual,
+    )
+
+    out = {}
+    tmp = tempfile.mkdtemp()
+    real_assets = models.ASSET_DIR
+
+    def run(key, fn, argv):
+        buf = io.StringIO()
+        methods = {MegaPhysics: "substeps", ArmMegaPhysics: "control_step"}
+        with made_objects(methods) as made, contextlib.redirect_stdout(buf):
+            ret, sec = _timed(lambda: fn(argv))
+        out[key] = {"s": sec, "stdout": buf.getvalue(), "ret": ret,
+                    "free_launches": sum(o.launches for o, _ in made[MegaPhysics]),
+                    "arm_launches": sum(o.launches for o, _ in made[ArmMegaPhysics]),
+                    "wrappers": (len(made[MegaPhysics]), len(made[ArmMegaPhysics]))}
+        t = time.perf_counter()
+        out[key]["holds"] = [(f"{c.__name__} {j} of {len(made[c])}, its last call (B={call[1].shape[0]}, "
+                              f"n={call[-1]})", h)
+                             for c in methods for j, (o, calls) in enumerate(made[c])
+                             for call in calls for h in hold_call(o, call)]
+        out[key]["hold_s"] = time.perf_counter() - t
+        print(f"[clock] {time.perf_counter() - T_START:7.1f} s: tool {key} done ({sec:.1f} s; its kernels "
+              f"held in {out[key]['hold_s']:.1f} s)", flush=True)
+
+    try:
+        demo = os.path.join(HERE, TOOL_DEMO)
+        run("run_demo_state_replay", run_demo.main, [demo, "--env", "IKEASawyer-v0", "--state_replay"])
+        with open(demo, "rb") as f:
+            cut = pickle.load(f)
+        cut["actions"] = cut["actions"][:TOOL_REPLAY_ACTIONS]
+        cut_path = os.path.join(tmp, "cut.pkl")
+        with open(cut_path, "wb") as f:
+            pickle.dump(cut, f)
+        run("run_demo_actions", run_demo.main, [cut_path, "--env", "IKEASawyer-v0"])
+        run("run_manual", run_manual.main, ["--script", TOOL_SCRIPT, "--out_dir", tmp,
+                                            "--demo_dir", os.path.join(tmp, "demos")])
+        run("eval_bc", eval_bc.main, ["--demos", os.path.join(HERE, "demos", "generated", "*.pkl"),
+                                      "--epochs", "5", "--episodes", "8", "--steps", "20",
+                                      "--out", os.path.join(tmp, "bc_eval.json")])
+        run("fps", fps.main, ["--all"])
+        assets = os.path.join(tmp, "assets")
+        shutil.copytree(real_assets, assets)
+        models.ASSET_DIR = compiler.ASSET_DIR = type(real_assets)(assets)
+        try:
+            run("resize", resize.main, ["table_lack_0825", "--scale", "1.3"])
+        finally:
+            models.ASSET_DIR = compiler.ASSET_DIR = real_assets
+        out["resize"]["in_real_assets"] = os.path.exists(
+            os.path.join(real_assets, "furniture", "table_lack_0825_x1p3.json"))
+        run("profile_gen", profile_gen.main, ["--batch", str(TOOL_GEN[0]), "--max_steps",
+                                              str(TOOL_GEN[1]), "--out", os.path.join(tmp, "gen.json")])
+        run("profile_cursor", profile_cursor.main, ["--out", os.path.join(tmp, "cursor.json")])
+        run("profile_ilqr", profile_ilqr.main, ["--out", os.path.join(tmp, "ilqr.json")])
+        out["files"] = {f: os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp)
+                        if os.path.isfile(os.path.join(tmp, f))}
+        with open(os.path.join(tmp, "bc_eval.json")) as f:
+            out["bc_eval_json"] = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1075,11 +1636,8 @@ def main() -> None:
         there the plain version's own spread under a 1e-7 input
         perturbation is measured and the kernel is held to 10x that spread
         where it exceeds tol. A ``pinched`` state is ill-conditioned in a
-        few envs: the median over the envs is held to tol, at most a tenth
-        of the envs may exceed it, and each env is held to tol or to 10x
-        the plain version's own spread in that env, the larger: its spread
-        under ``NOISE_DRAWS`` draws each of 1e-7 and 1e-6 of pose noise (on
-        the positions and the quaternions, renormalised). An env next to a
+        few envs: it is held env by env, its median and the count of envs
+        over tol limited (``hold_free``). An env next to a
         contact onset jumps; so does a symmetric contact, such as the snap
         substep's placeholder of part 0 at the origin in every env without
         a connect, whose large impulses cancel to a rounding that position
@@ -1087,6 +1645,14 @@ def main() -> None:
         nonlocal worst
         phys = env.physics
         for n, tol in checks:
+            if pinched:
+                h = hold_free(phys, parts, group, gscale, n, tol)
+                print(hold_line(tag, h), flush=True)
+                if h["problem"]:
+                    fail(f"{tag} n={n}: {h['problem']}")
+                spread_cases.append((f"{tag} n={n}", h["err"], h["spread"]))
+                worst = max(worst, h["median"])
+                continue
             ref = phys.plain_substeps(parts, group, gscale, n)
             out = phys.kernel_substeps(parts, group, gscale, n)
             again = phys.kernel_substeps(parts, group, gscale, n)
@@ -1099,7 +1665,6 @@ def main() -> None:
             err = max_err(ref, out)
             per = {f: round(max_err([a], [b]), 9) for f, a, b in zip(PartState._fields, ref, out)}
             note = ""
-            shown = None
             if n in chaotic_at:
                 g2 = torch.Generator(device=dev)
                 g2.manual_seed(7)
@@ -1109,45 +1674,9 @@ def main() -> None:
                 tol = max(tol, 10 * spread)
                 spread_cases.append((tag, err, spread))
                 note = f", plain vs plain(pos + 1e-7 noise) {spread:.3g}"
-            elif pinched:
-                B = parts.pos.shape[0]
-
-                def env_max(x, y):
-                    return torch.stack([(u - v.to(u.device)).abs().reshape(B, -1).amax(-1)
-                                        for u, v in zip(x, y)]).amax(0)
-
-                env_err = env_max(ref, out)
-                spread = torch.zeros_like(env_err)
-                for mag in (1e-7, 1e-6):
-                    for seed in range(NOISE_DRAWS):
-                        g2 = torch.Generator(device=dev)
-                        g2.manual_seed(100 + seed)
-                        eps = (torch.rand(parts.pos.shape, generator=g2, device=dev) - 0.5) * 2 * mag
-                        q = parts.quat + (torch.rand(parts.quat.shape, generator=g2, device=dev) - 0.5) * 2 * mag
-                        spread = torch.maximum(spread, env_max(ref, phys.plain_substeps(
-                            parts._replace(pos=parts.pos + eps, quat=q / torch.linalg.norm(q, dim=-1, keepdim=True)),
-                            group, gscale, n)))
-                bound = torch.clamp(10 * spread, min=tol)
-                med, over = env_err.median().item(), int((env_err > tol).sum())
-                i = int(torch.argmax(env_err / bound))
-                note = (f", median over envs {med:.3g} (bound {tol:.3g}), {over} of {B} envs over {tol:.3g}; "
-                        f"the plain version's own spread, the largest in an env: {spread.max().item():.3g} under "
-                        f"{NOISE_DRAWS} draws each of 1e-7 and 1e-6 of pose noise; the env nearest its bound, {i}: "
-                        f"{env_err[i].item():.3g} against its own spread {spread[i].item():.3g}")
-                if not med <= tol:
-                    fail(f"{tag} n={n}: median error {med} > {tol}")
-                if over > B // 10:
-                    fail(f"{tag} n={n}: {over} envs over {tol}")
-                if not bool((env_err <= bound).all()):
-                    fail(f"{tag} n={n}: env {i} disagrees by {env_err[i].item()}, over {tol} and over 10x the "
-                         f"plain version's own spread there ({spread[i].item()})")
-                spread_cases.append((f"{tag} n={n}", err, spread.max().item()))
-                worst = max(worst, med)
-                shown = f"bound per env {tol:.3g} or 10x its own spread, at most {bound.max().item():.3g}"
-                tol = bound.max().item()
             else:
                 worst = max(worst, err)
-            print(f"[check] {tag} n={n}: max|kernel-plain| {err:.3g} ({shown or f'bound {tol:.3g}'}{note}), "
+            print(f"[check] {tag} n={n}: max|kernel-plain| {err:.3g} (bound {tol:.3g}{note}), "
                   f"repeat bit-identical {per}", flush=True)
             if not err <= tol:
                 fail(f"{tag} n={n}: kernel disagrees with its plain version ({err} > {tol})")
@@ -1223,114 +1752,56 @@ def main() -> None:
     stamp("arm kernel vs plain")
     arm_worst = 0.0      # over the checks held at their stated bounds
     arm_spread_cases = []
-    ARM_FIELDS = PartState._fields + ("qpos", "qvel")
 
-    def arm_inputs(env, state, ctrl, n):
+    def arm_inputs(env, state, ctrl):
         B = ctrl.shape[0]
         G1, G2 = K.joint_dyn_matrices(env.robot, state.qpos, env.config.sim.timestep)
         return (
             PartState(*(t.contiguous() for t in state.parts)), state.group,
             torch.ones((B, env._P), device=dev), state.qpos, state.qvel, ctrl,
-            torch.zeros((B, env.robot.nj), device=dev), G1.contiguous(), G2.contiguous(), n,
+            torch.zeros((B, env.robot.nj), device=dev), G1.contiguous(), G2.contiguous(),
         )
-
-    def per_env(a, b):
-        """max |a - b| per env and field: {field: [B]}."""
-        B = a[1].shape[0]
-        pairs = list(zip(a[0], b[0])) + [(a[1], b[1]), (a[2], b[2])]
-        return {f: (x - y).abs().reshape(B, -1).amax(-1) for f, (x, y) in zip(ARM_FIELDS, pairs)}
 
     def hold_arm(env, state, ctrl, tag, checks, pinched, want_touch, recorded=None):
         """Arm kernel vs plain after n substeps for each (n, tol), from
         ``state`` under ``ctrl``, or from ``recorded`` (the inputs of one
-        ``control_step`` call but its ``n``) where given. A ``pinched`` case
-        is ill-conditioned in a few envs: its median over the envs is held
-        to tol, at most a tenth of the envs may exceed tol, and its maximum
-        is held to 10x the plain version's own spread under position
-        noise."""
+        ``control_step`` call but its ``n``) where given
+        (``hold_arm_call``)."""
         nonlocal arm_worst
-        ph = env.physics
+        args = arm_inputs(env, state, ctrl) if recorded is None else recorded
         for n, tol in checks:
-            args = arm_inputs(env, state, ctrl, n) if recorded is None else tuple(recorded) + (n,)
-            B = args[3].shape[0]
-            ref = ph.plain_control_step(*args)
-            out = ph.kernel_control_step(*args)
-            again = ph.kernel_control_step(*args)
-            torch.cuda.synchronize()
-            for t in list(out[0]) + [out[1], out[2]]:
-                if not torch.isfinite(t).all():
-                    fail(f"{tag} n={n}: arm kernel output not finite")
-            if not same_bits(list(out[0]) + list(out[1:]), list(again[0]) + list(again[1:])):
-                fail(f"{tag} n={n}: two launches of the arm kernel on one input differ")
-            errs = per_env(ref, out)
-            err = max(v.max().item() for v in errs.values())
-            med = max(v.median().item() for v in errs.values())
-            n_touch = int(out[3].sum())
-            if not torch.equal(ref[3], out[3]):
-                fail(f"{tag} n={n}: touch flags differ between arm kernel and plain version")
-            if want_touch and n_touch == 0:
+            h = hold_arm_call(env.physics, args, n, tol, pinched)
+            print(hold_line(tag, h), flush=True)
+            if h["problem"]:
+                fail(f"{tag} n={n}: {h['problem']}")
+            if want_touch and h["n_touch"] == 0:
                 fail(f"{tag} n={n}: no touch flag set")
-            note = ""
-            bound = tol
             if pinched:
-                # the plain version's own spread: three draws of position
-                # noise at 1e-7 and at 1e-6. One substep of summing ~1000
-                # lanes in another order already moves the velocities by up
-                # to 7e-5 (the n = 1 checks), which 1e-7 of position noise
-                # does not always reproduce
-                spreads = {}
-                for mag in (1e-7, 1e-6):
-                    worst_sp = 0.0
-                    for seed in (7, 8, 9):
-                        g2 = torch.Generator(device=dev)
-                        g2.manual_seed(seed)
-                        eps = (torch.rand(args[0].pos.shape, generator=g2, device=dev) - 0.5) * 2 * mag
-                        ref2 = ph.plain_control_step(args[0]._replace(pos=args[0].pos + eps), *args[1:])
-                        worst_sp = max(worst_sp, max(v.max().item() for v in per_env(ref, ref2).values()))
-                    spreads[mag] = worst_sp
-                spread = max(spreads.values())
-                bound = max(tol, 10 * spread)
-                over = int((torch.stack(list(errs.values())).amax(0) > tol).sum())
-                arm_spread_cases.append((f"{tag} n={n}", err, med, spreads[1e-7], spreads[1e-6], over))
-                note = (f", median over envs {med:.3g} (bound {tol:.3g}), {over} of {B} envs over "
-                        f"{tol:.3g}, plain vs plain(pos + noise) {spreads[1e-7]:.3g} at 1e-7 and "
-                        f"{spreads[1e-6]:.3g} at 1e-6")
-                if not med <= tol:
-                    fail(f"{tag} n={n}: median error {med} > {tol}")
-                if over > B // 10:
-                    fail(f"{tag} n={n}: {over} envs over {tol}")
-                arm_worst = max(arm_worst, med)
+                sp = h["spreads"] or {}
+                arm_spread_cases.append((f"{tag} n={n}", h["err"], h["median"], sp.get(1e-7), sp.get(1e-6),
+                                         h["envs_over"]))
+                arm_worst = max(arm_worst, h["median"])
             else:
-                arm_worst = max(arm_worst, err)
-            per = {f: round(v.max().item(), 9) for f, v in errs.items()}
-            print(f"[check] arm {tag} n={n}: max|kernel-plain| {err:.3g} (bound {bound:.3g}{note}), "
-                  f"touch flags equal, {n_touch} set, repeat bit-identical {per}", flush=True)
-            if not err <= bound:
-                fail(f"{tag} n={n}: arm kernel disagrees with its plain version ({err} > {bound})")
+                arm_worst = max(arm_worst, h["err"])
 
     def hold_recorded(env, calls, tag):
         """The kernel of ``env``'s path against its plain version at that
         path's own inputs (``recording``: kernel 2 for an arm env's calls,
-        kernel 1 for a cursor env's), at phase 2's bounds: after 5 substeps
-        (n where n <= 5) and after the call's own n. A rollout's state may
-        hold a part against the fingers, or parts at the velocity clamp in
-        contact (the plan's late steps at ``timestep=0.02``), where the plain
-        version itself jumps by far more than the bound in a few envs: so
-        kernel 2 is held by phase 2's rule for a pinched part and kernel 1
-        by ``hold``'s per-env form of it (``pinched``). At B = 1 both are
-        the plain bound but where the plain version's own spread is
-        larger."""
+        kernel 1 for a cursor env's) at ``recorded_checks``. A rollout's
+        state may hold a part against the fingers, or parts at the velocity
+        clamp in contact (the plan's late steps at ``timestep=0.02``), where
+        the plain version itself jumps by far more than the bound in a few
+        envs: so both kernels are held by phase 2's rule for a pinched
+        state. At B = 1 that is the plain bound but where the plain
+        version's own spread is larger."""
         if not calls:
             fail(f"{tag}: no physics call recorded")
         for k, call in enumerate(calls):
-            n, arm = call[-1], len(call) == 10
-            short, full = (5e-4, 1e-3) if arm else (1e-4, 1e-3)
-            checks = ((n, short),) if n <= 5 else ((5, short), (n, full))
-            where = f"{tag}, call {k + 1} of {len(calls)} (B={call[1].shape[0]}, n={n})"
-            if arm:
-                hold_arm(env, None, None, where, checks, True, False, recorded=call[:-1])
+            where = f"{tag}, call {k + 1} of {len(calls)} (B={call[1].shape[0]}, n={call[-1]})"
+            if len(call) == 10:
+                hold_arm(env, None, None, where, recorded_checks(call), True, False, recorded=call[:-1])
             else:
-                hold(env, *call[:3], where, checks=checks, pinched=True)
+                hold(env, *call[:3], where, checks=recorded_checks(call), pinched=True)
 
     def staged(agent, where, **sim):
         """An impedance env of ``agent``, a reset with part 0 placed at the
@@ -2192,6 +2663,173 @@ def main() -> None:
                    + sum(mesh_launches["ppo_ws2_ranks"]))
     render_mesh_arm = render_launches["sawyer_impedance_render200"][0] + wr["IKEASawyer-v0"]["launches"]
 
+    # -- 3n. the whole registry on the card ------------------------------------------------------
+    stamp("all-furniture sweep")
+    t_phase = time.perf_counter()
+    sweep = drive_sweep(dev)
+    for r in sweep:
+        want_free = 10 + (2 * SWEEP_STEPS if r["agent"] == "Cursor" else 0)
+        want_arm = SWEEP_STEPS if r["agent"] != "Cursor" else 0
+        kern = " ".join(f"{k}: {v}" for k, v in sorted(r["routes"].items()))
+        print(f"[sweep] {r['agent']} {r['name']}: P={r['P']} K={r['K']}"
+              + (f" (kernel 2 K={r['arm_K']})" if r["arm_K"] else "")
+              + f" | {kern} | build {r['build_s']:.2f} s, reset {r['reset_ms']:.1f} ms, step "
+              f"{r['step_ms']:.1f} ms (B={SWEEP_B}) | launches free {r['free_launches']} arm "
+              f"{r['arm_launches']} | " + "; ".join(
+                  f"{what} n={h['n']}: {h['err']:.3g}" + (
+                      "" if h["spread"] is None else
+                      f" (over {h['tol']:.3g} in {h['envs_over']} of the {h['envs_counted']} envs whose own "
+                      f"spread is within it, median {h['median']:.3g}; {h['chaotic_envs']} envs chaotic, "
+                      f"{h['tie_envs']} with a lane on the contact threshold; the env nearest its bound, "
+                      f"{h['env']}: {h['env_err']:.3g} against its own spread {h['env_spread']:.3g})"
+                  ) if "n_touch" not in h else f"{what} n={h['n']}: {h['err']:.3g} ({arm_note(h)})"
+                  for what, h in r["holds"]), flush=True)
+        if r["problem"] or not (r["reward_finite"] and r["obs_finite"]):
+            fail(f"sweep {r['agent']} {r['name']}: {r['problem'] or 'reward or observation not finite'}")
+        if (r["free_launches"], r["arm_launches"]) != (want_free, want_arm):
+            fail(f"sweep {r['agent']} {r['name']}: launches {(r['free_launches'], r['arm_launches'])}, "
+                 f"expected {(want_free, want_arm)}")
+        if r["agent"] != "Cursor" and r["recorded"] != SWEEP_STEPS:
+            fail(f"sweep {r['agent']} {r['name']}: {r['recorded']} arm calls recorded, expected {SWEEP_STEPS}")
+        for what, h in r["holds"]:
+            if h["problem"]:
+                fail(f"sweep {r['agent']} {r['name']}: {what} n={h['n']}: {h['problem']}")
+    free_holds = [h for r in sweep for _, h in r["holds"] if "n_touch" not in h]
+    sweep_worst = max((h["err"] for h in free_holds if h["spread"] is None), default=0.0)
+    sweep_arm_worst = max((h["median"] for r in sweep for _, h in r["holds"] if "n_touch" in h), default=0.0)
+    sweep_free = sum(r["free_launches"] for r in sweep)
+    sweep_arm = sum(r["arm_launches"] for r in sweep)
+    cursor_rows = [r for r in sweep if r["agent"] == "Cursor"]
+    route_counts = {}
+    for r in cursor_rows:
+        for k, v in r["routes"].items():
+            route_counts.setdefault(k, {}).setdefault(v, 0)
+            route_counts[k][v] += 1
+    chaotic = sorted({r["name"] for r in sweep for _, h in r["holds"] if h.get("chaotic_envs")})
+    tied = sorted({r["name"] for r in sweep for _, h in r["holds"] if h.get("tie_envs")})
+    print(f"[main] sweep: {len(cursor_rows)} furniture models as cursor envs and {len(sweep) - len(cursor_rows)} "
+          f"as Sawyer impedance, B={SWEEP_B}, SimConfig({SWEEP_SIM}): all live; routes of the cursor models "
+          f"{route_counts}; kernel 1 held on every model, worst {sweep_worst:.3g} where every env is inside "
+          f"1e-4 (models with an env where the plain version's own spread exceeds 1e-4, held there to 10x "
+          f"it: {chaotic}; of them with a lane on the contact threshold: {tied}); kernel 2 held at each "
+          f"arm step's inputs, worst median {sweep_arm_worst:.3g}; launches free {sweep_free} arm {sweep_arm}")
+    steps_ms = sorted(r["step_ms"] for r in cursor_rows)
+    resets_ms = sorted(r["reset_ms"] for r in cursor_rows)
+    print(f"[time] sweep cursor models B={SWEEP_B}: step ms median {steps_ms[len(steps_ms) // 2]:.1f} "
+          f"(range {steps_ms[0]:.1f}-{steps_ms[-1]:.1f}), reset ms median {resets_ms[len(resets_ms) // 2]:.1f} "
+          f"(range {resets_ms[0]:.1f}-{resets_ms[-1]:.1f}; first call of each model) | {card}")
+    lane_routes = time_lane_routes(dev)
+    for name, c in lane_routes.items():
+        print(f"[time] lane solver route {c['route']}: {name} B={MAIN_B} K={c['K']} P={c['P']} "
+              f"sweeps={c['sweeps']} ({c['lanes_with_contact']} lanes with a contact, "
+              f"{c['lanes_with_mask_set']} with the mask set): {c['ms'][0]:.4f}, {c['ms'][1]:.4f} ms/launch "
+              f"(in turns); bound {c['bound_ms']:.5f} ms ({c['bound_by']}), kernel at "
+              f"{c['bound_ms'] / min(c['ms']):.4f} of it | {card}")
+    sweep_s = time.perf_counter() - t_phase
+    print(f"[clock] all-furniture sweep phase: {sweep_s:.1f} s", flush=True)
+
+    # -- 3o. the command-line tools -----------------------------------------------------------
+    stamp("command-line tools")
+    t_phase = time.perf_counter()
+    tools = drive_tools(dev)
+    t = tools["run_demo_state_replay"]
+    rd_state = json.loads(t["stdout"].strip().splitlines()[-1])
+    t2 = tools["run_demo_actions"]
+    rd_act = json.loads(t2["stdout"].strip().splitlines()[-1])
+    print(f"[tools] run_demo --state_replay {TOOL_DEMO}: {rd_state} in {t['s']:.1f} s, launches free "
+          f"{t['free_launches']} arm {t['arm_launches']}; action replay of its first {TOOL_REPLAY_ACTIONS} "
+          f"actions: {rd_act} in {t2['s']:.1f} s, launches free {t2['free_launches']} arm {t2['arm_launches']}")
+    if not (rd_state == {"steps": 1570, "num_connected": 4, "mode": "state_replay"}
+            and (t["free_launches"], t["arm_launches"]) == (10, 0)):
+        fail(f"run_demo --state_replay: {rd_state}, launches {(t['free_launches'], t['arm_launches'])}")
+    if not (set(rd_act) == {"steps", "total_reward", "num_connected", "final_object_ob_l2"}
+            and rd_act["steps"] == TOOL_REPLAY_ACTIONS and np.isfinite(rd_act["total_reward"])
+            and np.isfinite(rd_act["final_object_ob_l2"])
+            and (t2["free_launches"], t2["arm_launches"]) == (10, 3 * TOOL_REPLAY_ACTIONS)):
+        fail(f"run_demo action replay: {rd_act}, launches {(t2['free_launches'], t2['arm_launches'])}")
+    t = tools["run_manual"]
+    n_keys = t["stdout"].count("key=")
+    shot = [l for l in t["stdout"].splitlines() if l.startswith("screenshot -> ")]
+    print(f"[tools] run_manual --script {TOOL_SCRIPT!r}: {n_keys} steps, {shot}, files written "
+          f"{tools['files']}, launches free {t['free_launches']} in {t['s']:.1f} s")
+    if not (n_keys == 5 and len(shot) == 1 and os.path.basename(shot[0][14:]) in tools["files"]
+            and tools["files"][os.path.basename(shot[0][14:])] > 0 and t["free_launches"] == 10 + 2 * 5):
+        fail("run_manual: steps, screenshot or launches wrong")
+    t, bc = tools["eval_bc"], tools["bc_eval_json"]
+    print(f"[tools] eval_bc --epochs 5 --episodes 8 --steps 20: {bc} in {t['s']:.1f} s, launches free "
+          f"{t['free_launches']} arm {t['arm_launches']}")
+    want_keys = {"n_demos", "n_transitions", "bc_final_mse", "episodes", "max_steps", "num_connects",
+                 "success_rate", "n_success", "success_steps", "pool_offset", "criterion",
+                 "furniture_name", "seed"}
+    if not (set(bc) == want_keys and bc["n_demos"] == 12 and bc["episodes"] == 8
+            and np.isfinite(bc["bc_final_mse"]) and (t["free_launches"], t["arm_launches"]) == (10, 60)):
+        fail(f"eval_bc: output or launches wrong ({t['free_launches']}, {t['arm_launches']})")
+    t = tools["fps"]
+    for row in t["ret"]:
+        print(f"[time] fps {row} | {card}")
+    want_fps = (10 * 5 + 2 * 40, 3 * 40 * 2 + 40 * 2)
+    print(f"[tools] fps --all: {len(t['ret'])} rows in {t['s']:.1f} s, launches free {t['free_launches']} "
+          f"arm {t['arm_launches']} (expected {want_fps})")
+    if not (len(t["ret"]) == 5 and all(r["steps_per_s"] > 0 and r["batch"] == 512 for r in t["ret"])
+            and (t["free_launches"], t["arm_launches"]) == want_fps):
+        fail("fps --all: rows or launches wrong")
+    t = tools["resize"]
+    print(f"[tools] resize table_lack_0825 --scale 1.3: {t['ret']} (a file in the real asset directory: "
+          f"{t['in_real_assets']}); {t['stdout'].count('(x2.20)')} part masses x2.20 in {t['s']:.1f} s")
+    if t["in_real_assets"] or t["stdout"].count("(x2.20)") != 5 or not str(t["ret"]).endswith(
+            os.path.join("assets", "furniture", "table_lack_0825_x1p3.json")):
+        fail("resize: wrong output or wrote into the real asset directory")
+    t, pg = tools["profile_gen"], tools["profile_gen"]["ret"]
+    print(f"[tools] profile_gen --batch {TOOL_GEN[0]} --max_steps {TOOL_GEN[1]}: funnel {pg['funnel']}, "
+          f"connect histogram {pg['connect_histogram']} in {t['s']:.1f} s, launches free "
+          f"{t['free_launches']} arm {t['arm_launches']}")
+    if not (pg["batch"] == TOOL_GEN[0] and pg["max_steps"] == TOOL_GEN[1] and pg["funnel"]["lanes"] == TOOL_GEN[0]
+            and (t["free_launches"], t["arm_launches"]) == (10, 3 * TOOL_GEN[1])):
+        fail("profile_gen: output or launches wrong")
+    t, pc = tools["profile_cursor"], tools["profile_cursor"]["ret"]
+    print(f"[time] profile_cursor B={pc['batch']} H={pc['horizon']}: full {pc['full_ms_per_batchstep']:.3f} "
+          f"ms/step ({pc['full_steps_per_s']:.1f} env steps/s), kernel {pc['kernel_ms_per_batchstep']:.3f}, "
+          f"kernel1 {pc['kernel1_ms_per_batchstep']:.3f}, glue {pc['glue_ms_per_batchstep']:.3f} "
+          f"({pc['glue_steps_per_s']:.1f} env steps/s); {t['s']:.1f} s, launches free {t['free_launches']} "
+          f"(expected 490) | {card}")
+    if not (pc["device"] == torch.cuda.get_device_name(0) and t["free_launches"] == 10 + 6 * 20 * 4
+            and all(pc[k] > 0 for k in ("full_ms_per_batchstep", "kernel_ms_per_batchstep",
+                                        "kernel1_ms_per_batchstep", "glue_ms_per_batchstep"))):
+        fail("profile_cursor: rows or launches wrong")
+    t, pi = tools["profile_ilqr"], tools["profile_ilqr"]["ret"]
+    # reset; 4 solves of 64 + 5 x 64; 7 rollouts (6 timed, 1 for the line
+    # search's reference); 6 line searches of 64 steps at B = 5
+    want_il = 10 + 4 * 384 + 7 * 64 + 6 * 64
+    print(f"[time] profile_ilqr H={pi['horizon']} x {pi['iterations']} iterations: solve {pi['full_solve_s']:.3f} s, "
+          f"line search (5 alphas) {pi['linesearch5_s'] * 1e3:.1f} ms, linearize {pi['linearize_s'] * 1e3:.1f} ms, "
+          f"backward {pi['backward_s'] * 1e3:.2f} ms, rollout64 {pi['rollout64_s'] * 1e3:.1f} ms, accounted "
+          f"{pi['accounted_s']:.3f} s; {t['s']:.1f} s, launches free {t['free_launches']} (expected {want_il}) "
+          f"| {card}")
+    if not (pi["device"] == torch.cuda.get_device_name(0) and t["free_launches"] == want_il
+            and all(pi[k] > 0 for k in ("full_solve_s", "linesearch5_s", "linearize_s", "backward_s",
+                                        "rollout64_s"))):
+        fail("profile_ilqr: rows or launches wrong")
+    tool_keys = [k for k in tools if isinstance(tools[k], dict) and "free_launches" in tools[k]]
+    # each kernel a tool launched, held at the inputs of its last call there
+    for k in tool_keys:
+        t = tools[k]
+        for c, n_launch in (("MegaPhysics", t["free_launches"]), ("ArmMegaPhysics", t["arm_launches"])):
+            if n_launch and not any(what.startswith(c + " ") for what, _ in t["holds"]):
+                fail(f"tool {k}: {c}'s kernel launched {n_launch} times but no call of it was recorded")
+        for what, h in t["holds"]:
+            print(hold_line(f"tool {k}: {what}", h), flush=True)
+            if h["problem"]:
+                fail(f"tool {k}: {what} n={h['n']}: {h['problem']}")
+    tool_holds = [h for k in tool_keys for _, h in tools[k]["holds"]]
+    tools_free_worst = max((h["median"] for h in tool_holds if "n_touch" not in h), default=0.0)
+    tools_arm_worst = max((h["median"] for h in tool_holds if "n_touch" in h), default=0.0)
+    tools_free = sum(tools[k]["free_launches"] for k in tool_keys)
+    tools_arm = sum(tools[k]["arm_launches"] for k in tool_keys)
+    tools_s = time.perf_counter() - t_phase
+    print(f"[clock] command-line tools phase: {tools_s:.1f} s ("
+          + ", ".join(f"{k} {tools[k]['s']:.1f} + holds {tools[k]['hold_s']:.1f}" for k in tool_keys) + ")",
+          flush=True)
+
     # -- 4. times ---------------------------------------------------------------
     stamp("cursor times")
     env = vec.env
@@ -2290,7 +2928,7 @@ def main() -> None:
         astate, *_ = aenv.step_batch(astate, a)
     ctrl = aenv._direct_ctrl(acts[2][:, :-1])
     an = aenv.config.n_substeps
-    aargs = arm_inputs(aenv, astate, ctrl, an)
+    aargs = arm_inputs(aenv, astate, ctrl) + (an,)
     aph.kernel_control_step(*aargs)  # warm-up
     arm_kernel_ms = cuda_ms(lambda: aph.kernel_control_step(*aargs), 10)
     aph.plain_control_step(*aargs)  # warm-up
@@ -2452,7 +3090,8 @@ def main() -> None:
         "source": "furniture_tpu_torch/physics/csrc/megakernel.cu",
         "replaces": "furniture_tpu/physics/megakernel.py:428",
         "launches": launches + sum(il["launches"]) + rr["ppo_setup_launches"] + sum(ppo_launch)
-        + sac["launches"] + ga["launches"] + ev["launches"] + tr["launches"] + render_mesh_free,
+        + sac["launches"] + ga["launches"] + ev["launches"] + tr["launches"] + render_mesh_free
+        + sweep_free + tools_free,
         "max_abs_err": worst,
         "ms": kernel_ms,
         "welded_ms": welded_ms,
@@ -2483,13 +3122,25 @@ def main() -> None:
             "wrapper_sawyer_reset": wr["IKEASawyer-v0"]["free_launches"], **mesh_launches},
         "ilqr": il,
         "rl": rr,
+        "launches_on_sweep_and_tools_paths": {
+            "sweep": sweep_free, **{f"tool_{k}": tools[k]["free_launches"] for k in tool_keys}},
+        "sweep_max_abs_err": sweep_worst,
+        "tools_median_abs_err": tools_free_worst,
+        "sweep": [{k: r[k] for k in ("agent", "name", "P", "K", "arm_K", "routes", "reset_ms", "step_ms")}
+                  | {"hold_err": [h["err"] for _, h in r["holds"] if "n_touch" not in h]}
+                  for r in sweep],
+        "sweep_s": sweep_s,
+        "tools_s": {k: tools[k]["s"] for k in tool_keys} | {"phase": tools_s},
+        "fps": tools["fps"]["ret"],
+        "profile_cursor": tools["profile_cursor"]["ret"],
+        "profile_ilqr": tools["profile_ilqr"]["ret"],
     }, {
         "name": "arm_megakernel",
         "route": "cuda",
         "source": "furniture_tpu_torch/physics/csrc/arm_megakernel.cu",
         "replaces": "furniture_tpu/physics/arm_megakernel.py:459",
         "launches": arm_launches["impedance"] + arm_launches["ik"] + gen_arm_launches
-        + ad["launches"] + render_mesh_arm,
+        + ad["launches"] + render_mesh_arm + sweep_arm + tools_arm,
         "max_abs_err": arm_worst,
         "ms": arm_kernel_ms,
         "latency_floor_ms": arm_floor_ms,
@@ -2504,8 +3155,11 @@ def main() -> None:
         "launches_by_path": dict(arm_launches, generator=gen_arm_launches,
                                  ilqr_arm_dynamics=ad["launches"],
                                  render_sawyer200=render_launches["sawyer_impedance_render200"][0],
-                                 wrapper_sawyer=wr["IKEASawyer-v0"]["launches"]),
+                                 wrapper_sawyer=wr["IKEASawyer-v0"]["launches"], sweep=sweep_arm,
+                                 **{f"tool_{k}": tools[k]["arm_launches"] for k in tool_keys}),
         "ilqr_arm_dynamics": ad,
+        "sweep_median_abs_err": sweep_arm_worst,
+        "tools_median_abs_err": tools_arm_worst,
         "ill_conditioned_checks": [
             {"case": t, "max_abs_err": e, "median_abs_err": m, "plain_spread_1e-7": s7,
              "plain_spread_1e-6": s6, "envs_over_bound": over}
@@ -2559,6 +3213,7 @@ def main() -> None:
         "step_ms": lane_step_ms,
         "env_steps_per_s": lane_steps_per_s,
         "mppi_plans_per_s": {"default": 1.0 / min(mppi_s[1:]), "lane": 1.0 / lane_plan_s},
+        "routes_at_bench_batch": lane_routes,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -195,16 +195,22 @@ def _solve_contacts(
     slop: float,
     lam0,
     warm_cap=None,
+    min_normal=None,
 ):
     """Impulse-accumulating mass-split Jacobi solve, warm-started from
     ``lam0`` [B,K,3], capped at ``WARM_CAP_ACC`` or, per lane, at
     ``warm_cap`` [K]. Lanes with ``part_b == -1`` and a ``vel_b`` are
-    kinematic colliders moving at that prescribed velocity. Returns the
-    updated group velocities, the converged ``lam`` for the next substep
-    and the impulse [B,K,3] each lane applied to its part a."""
+    kinematic colliders moving at that prescribed velocity. ``min_normal``
+    ([K] or [B,K], optional) is a per-lane floor of the normal impulse on
+    the active lanes (a general solver feature of the JAX package's
+    ``_solve_contacts``; no caller of either package passes one, and no
+    kernel takes it). Returns the updated group velocities, the converged
+    ``lam`` for the next substep and the impulse [B,K,3] each lane applied
+    to its part a."""
     pa, pb, hb, r_a, r_b, dirs, inv_w, bias, fmask, lane_scale, mem_a, mem_b = lane_prep(
         c, group, g_com, g_inv_mass, g_inv_inertia, dt, relaxation, slop
     )
+    lam_floor = None if min_normal is None else min_normal * fmask
 
     mem_ab_t = (mem_a - mem_b).transpose(1, 2)                      # [B,P,K]
     mem_a_t = mem_a.transpose(1, 2)
@@ -231,7 +237,10 @@ def _solve_contacts(
         vd = torch.sum(v_rel[:, :, None, :] * dirs, dim=-1)         # [B,K,3]
         target = torch.stack([vd[..., 0] + bias, vd[..., 1], vd[..., 2]], -1)
         lam_new = lam - target * inv_w * lane_scale[..., None]
-        ln = torch.clamp(lam_new[..., 0], min=0.0)
+        if lam_floor is None:
+            ln = torch.clamp(lam_new[..., 0], min=0.0)
+        else:
+            ln = torch.maximum(lam_new[..., 0], lam_floor)
         max_f = fric * ln
         lt = torch.minimum(
             torch.maximum(lam_new[..., 1:], -max_f[..., None]), max_f[..., None]
@@ -352,14 +361,23 @@ def make_substep(model_np, cfg_sim, device):
             dt, cfg_sim.solver_iters, cfg_sim.relaxation, slop,
         )
 
-    def substep(state: PartState, group, gravity_scale, lam_warm, extra_contacts=None):
+    def substep(state: PartState, group, gravity_scale, lam_warm, extra_contacts=None,
+                extra_min_normal=None):
         """``extra_contacts`` (a prebuilt :class:`Contacts`, the robot
         gripper lanes) are appended to the floor, pair and SAT lanes with
         the tighter robot warm cap; their impulses are then returned as a
-        third value."""
+        third value. ``extra_min_normal`` ([K_extra] or [B,K_extra]) floors
+        the normal impulse of those lanes (zero on the base lanes), as
+        ``engine.substep``'s of the JAX package does. Like every call with
+        ``extra_contacts``, it runs the plain ``_solve_contacts`` on every
+        backend and device: neither kernel takes a floor, nor does the JAX
+        package's lane solver (``pallas_solver.solve_contacts_pallas``),
+        which the JAX package likewise bypasses for such calls."""
+        if extra_min_normal is not None and extra_contacts is None:
+            raise ValueError("extra_min_normal floors extra_contacts' lanes: pass both")
         member, solve_args = solver_args(state, group, gravity_scale)
         g_com = solve_args[2]
-        warm_cap = None
+        warm_cap = min_normal = None
         if extra_contacts is not None:
             contacts = solve_args[0]
             n_base = contacts.depth.shape[1]
@@ -370,12 +388,16 @@ def make_substep(model_np, cfg_sim, device):
                 torch.full((n_base,), WARM_CAP_ACC, device=dev),
                 torch.full((n_extra,), ROBOT_WARM_CAP_ACC, device=dev),
             ])
+            if extra_min_normal is not None:
+                floor = torch.as_tensor(extra_min_normal, dtype=torch.float32, device=dev)
+                floor = floor.expand(contacts.depth.shape[0], n_extra)
+                min_normal = torch.cat([torch.zeros_like(contacts.depth), floor], -1)
 
         if lane and extra_contacts is None:
             lv, av = solve_contacts_lane(*solve_args, tables=lane_tables)
             lam = imp = None
         else:
-            lv, av, lam, imp = _solve_contacts(*solve_args, lam_warm, warm_cap)
+            lv, av, lam, imp = _solve_contacts(*solve_args, lam_warm, warm_cap, min_normal)
         # safety velocity clamp (bounds energy so lanes never NaN)
         lv = torch.clamp(lv, -cfg_sim.max_velocity, cfg_sim.max_velocity)
         av = torch.clamp(av, -cfg_sim.max_velocity, cfg_sim.max_velocity)

@@ -275,6 +275,7 @@ class MegaPhysics:
 
     def __init__(self, model_np, cfg_sim, device):
         self.cfg = cfg_sim
+        self.model_np = model_np   # to build plain versions under another SimConfig
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # tensors report a concrete index; compare against the same
