@@ -23,6 +23,7 @@ from .envs.arm import make_arm_env
 from .envs.assembly import tree_where
 from .envs.cursor import CursorEnv, _unsqueeze, resolve_device
 from .models import furniture_names
+from .utils.trace import span
 
 REGISTERED_ENVS: dict[str, Callable] = {}
 
@@ -188,11 +189,14 @@ class VecEnv:
     def step(self, actions):
         if self._state is None:
             raise RuntimeError("call reset() first")
-        state, obs, rew, done, info = self.env.step_batch(self._state, actions)
-        if bool(done.any()):
-            fresh = self.env.reset_batch(self.num_envs, self.generator)
-            state = tree_where(done, fresh, state)
-        self._state = state
+        with span("ft.vec.step"):
+            state, obs, rew, done, info = self.env.step_batch(self._state, actions)
+            with span("ft.vec.sync"):
+                any_done = bool(done.any())
+            if any_done:
+                fresh = self.env.reset_batch(self.num_envs, self.generator)
+                state = tree_where(done, fresh, state)
+            self._state = state
         return obs, rew, done, info
 
     @property

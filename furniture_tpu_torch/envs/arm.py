@@ -36,9 +36,14 @@ Every control step is one launch of the arm kernel through
 reset's ten settle rounds go through the free-part kernel or, with
 ``SimConfig(use_pallas="lane")``, through the lane-solver backend. Where the JAX
 package branches per env with ``lax.cond``, this module computes both sides
-and selects on the batch; the step path has no host synchronisation,
-except under ``position_orientation`` and ``position``, whose batched
-``torch.linalg.svd`` waits for the card.
+and selects on the batch. On the card an impedance step synchronises the
+host twice (three times a ``VecEnv.step`` with its ``done.any()``; counted
+under ``torch.profiler`` on an H100): in ``torch.cholesky_solve`` of
+``kinematics.joint_dyn_matrices`` (span ``ft.env.dynamics``) and in the
+list index of ``transforms.convert_quat`` in ``observe`` (span
+``ft.env.observe``: a blocking host-to-device copy of the index);
+``position_orientation`` and ``position`` add their batched
+``torch.linalg.svd``.
 
 Entry points run on CUDA by default (``device=None``); only an explicit
 ``device="cpu"`` runs on the CPU, where the physics is the kernels' plain
@@ -71,6 +76,7 @@ from ..physics.state import PartState, init_state, zero_vel
 from ..robots import AGENT_SPECS, compile_robot
 from ..robots import kinematics as K
 from ..utils.init_pool import load_pool
+from ..utils.trace import span
 from .assembly import (
     AssemblyOps,
     apply_reset_variants,
@@ -255,23 +261,26 @@ class ArmEnv:
         computed once per control step."""
         cfg = self.config.sim
         B = ctrl.shape[0]
-        G1, G2 = K.joint_dyn_matrices(self.robot, states.qpos, cfg.timestep)
-        if tau_extra is None:
-            tau_extra = torch.zeros((B, self.robot.nj), dtype=torch.float32, device=self.device)
-        gscale = torch.ones((B, self._P), dtype=torch.float32, device=self.device)
-        parts = PartState(*(t.contiguous() for t in states.parts))
-        parts, qp, qv, touch = self.physics.control_step(
-            parts,
-            states.group.contiguous(),
-            gscale,
-            states.qpos.contiguous(),
-            states.qvel.contiguous(),
-            ctrl.contiguous(),
-            tau_extra.contiguous(),
-            G1.contiguous(),
-            G2.contiguous(),
-            n,
-        )
+        with span("ft.env.dynamics"):
+            G1, G2 = K.joint_dyn_matrices(self.robot, states.qpos, cfg.timestep)
+        with span("ft.env.physics"):
+            if tau_extra is None:
+                tau_extra = torch.zeros((B, self.robot.nj), dtype=torch.float32,
+                                        device=self.device)
+            gscale = torch.ones((B, self._P), dtype=torch.float32, device=self.device)
+            parts = PartState(*(t.contiguous() for t in states.parts))
+            parts, qp, qv, touch = self.physics.control_step(
+                parts,
+                states.group.contiguous(),
+                gscale,
+                states.qpos.contiguous(),
+                states.qvel.contiguous(),
+                ctrl.contiguous(),
+                tau_extra.contiguous(),
+                G1.contiguous(),
+                G2.contiguous(),
+                n,
+            )
         touch = touch.reshape(B, self.n_arms, 2, self._P)
         return states._replace(
             parts=parts, qpos=qp, qvel=qv, touch_l=touch[:, :, 0], touch_r=touch[:, :, 1]
@@ -456,7 +465,8 @@ class ArmEnv:
 
     def _controller_step(self, state: ArmState, action) -> ArmState:
         # motors get zero ctrl; the controller torque enters via tau_extra
-        ctrl, tau_extra = self._controller_prepare(state, action)
+        with span("ft.env.control"):
+            ctrl, tau_extra = self._controller_prepare(state, action)
         return self._substeps(state, ctrl, tau_extra, self.config.n_substeps)
 
     def _step_physics_batch(self, states: ArmState, actions) -> ArmState:
@@ -464,16 +474,20 @@ class ArmEnv:
         snap-back; no reward."""
         cfg = self.config
         if self.control_type in ("ik", "ik_quaternion"):
-            states, q_cmd, grip = self._ik_prepare(states, actions)
+            with span("ft.env.control"):
+                states, q_cmd, grip = self._ik_prepare(states, actions)
             for _ in range(cfg.action_repeat):
-                ctrl = self._ik_ctrl(states.qpos, q_cmd, grip)
+                with span("ft.env.control"):
+                    ctrl = self._ik_ctrl(states.qpos, q_cmd, grip)
                 states = self._substeps(states, ctrl, None, cfg.n_substeps)
         elif self.control_type in ("impedance", "torque"):
-            ctrl = self._direct_ctrl(actions[:, :-1])
+            with span("ft.env.control"):
+                ctrl = self._direct_ctrl(actions[:, :-1])
             states = self._substeps(states, ctrl, None, cfg.n_substeps)
         else:
             states = self._controller_step(states, actions[:, :-1])
-        return self._connect_phase(states, actions[:, -1])
+        with span("ft.env.connect"):
+            return self._connect_phase(states, actions[:, -1])
 
     def _connect_phase(self, state: ArmState, connect) -> ArmState:
         # connect attempt: the first part touched by both fingers of any arm
@@ -672,37 +686,38 @@ class ArmEnv:
 
     def observe(self, state: ArmState) -> dict:
         """Observation dict (batched): object_ob [B,7P], robot_ob, subtask_ob."""
-        cfg = self.config
-        r = self.robot
-        B = state.group.shape[0]
-        obs = {}
-        if cfg.object_ob:
-            obs["object_ob"] = torch.cat([state.parts.pos, state.parts.quat], -1).reshape(B, -1)
-        if cfg.robot_ob:
-            fk_out = K.fk(r, state.qpos)
-            feats = []
-            if self.control_type in ("impedance", "torque") + NEW_CONTROLLERS:
+        with span("ft.env.observe"):
+            cfg = self.config
+            r = self.robot
+            B = state.group.shape[0]
+            obs = {}
+            if cfg.object_ob:
+                obs["object_ob"] = torch.cat([state.parts.pos, state.parts.quat], -1).reshape(B, -1)
+            if cfg.robot_ob:
+                fk_out = K.fk(r, state.qpos)
+                feats = []
+                if self.control_type in ("impedance", "torque") + NEW_CONTROLLERS:
+                    for arm in self.arms:
+                        feats.append(state.qpos[:, self._arm_joints[arm]])
+                        feats.append(state.qvel[:, self._arm_joints[arm]])
                 for arm in self.arms:
-                    feats.append(state.qpos[:, self._arm_joints[arm]])
-                    feats.append(state.qvel[:, self._arm_joints[arm]])
-            for arm in self.arms:
-                site_pos, _ = K.site_world(r, fk_out, arm)
-                _, hand_quat = K.eef_pose(r, fk_out, arm)
-                Jsite = K.point_jacobian(r, fk_out, r.eef_body[arm], site_pos)
-                vel6 = (Jsite @ state.qvel[..., None])[..., 0]
-                feats.extend(
-                    [
-                        state.qpos[:, self._grip_joints[arm]][:, :2],
-                        site_pos,
-                        T.convert_quat(hand_quat, to="xyzw"),
-                        vel6[:, :3],
-                        vel6[:, 3:],
-                    ]
-                )
-            obs["robot_ob"] = torch.cat(feats, -1)
-        if cfg.subtask_ob:
-            obs["subtask_ob"] = state.subtask + 1
-        return obs
+                    site_pos, _ = K.site_world(r, fk_out, arm)
+                    _, hand_quat = K.eef_pose(r, fk_out, arm)
+                    Jsite = K.point_jacobian(r, fk_out, r.eef_body[arm], site_pos)
+                    vel6 = (Jsite @ state.qvel[..., None])[..., 0]
+                    feats.extend(
+                        [
+                            state.qpos[:, self._grip_joints[arm]][:, :2],
+                            site_pos,
+                            T.convert_quat(hand_quat, to="xyzw"),
+                            vel6[:, :3],
+                            vel6[:, 3:],
+                        ]
+                    )
+                obs["robot_ob"] = torch.cat(feats, -1)
+            if cfg.subtask_ob:
+                obs["subtask_ob"] = state.subtask + 1
+            return obs
 
     # -- step ------------------------------------------------------------------
 
@@ -710,10 +725,12 @@ class ArmEnv:
         """One control step for a batch: ``(state, obs, reward [B], done [B],
         info)``, with the whole substep loop in one kernel launch per
         control step."""
-        actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
-        prev_connected = states.num_connected
-        states = self._step_physics_batch(states, actions)
-        return self._finish_step(states, actions, prev_connected)
+        with span("ft.env.step"):
+            actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
+            prev_connected = states.num_connected
+            states = self._step_physics_batch(states, actions)
+            with span("ft.env.finish"):
+                return self._finish_step(states, actions, prev_connected)
 
     # -- single-env views --------------------------------------------------------
 

@@ -32,6 +32,7 @@ from ..physics.engine import physics_tables
 from ..physics.megakernel import make_batched_substeps
 from ..physics.state import PartState, init_state, zero_vel
 from ..utils.init_pool import load_pool
+from ..utils.trace import span
 from .assembly import (
     AssemblyOps,
     apply_reset_variants,
@@ -137,8 +138,9 @@ class CursorEnv:
         self._init_pool = None if pool is None else pool_to_device(pool, self.device)
 
     def _physics(self, parts: PartState, group, gscale, n: int) -> PartState:
-        parts = PartState(*(t.contiguous() for t in parts))
-        return self.physics.substeps(parts, group.contiguous(), gscale.contiguous(), n)
+        with span("ft.env.physics"):
+            parts = PartState(*(t.contiguous() for t in parts))
+            return self.physics.substeps(parts, group.contiguous(), gscale.contiguous(), n)
 
     # -- cursor-specific helpers --------------------------------------------
 
@@ -277,19 +279,21 @@ class CursorEnv:
     def observe(self, state: CursorState) -> dict:
         """Observation dict (batched): object_ob [B,7P], robot_ob [B,8],
         subtask_ob [B,2]."""
-        obs = {}
-        B = state.group.shape[0]
-        if self.config.object_ob:
-            obs["object_ob"] = torch.cat(
-                [state.parts.pos, state.parts.quat], dim=-1
-            ).reshape(B, -1)
-        if self.config.robot_ob:
-            obs["robot_ob"] = torch.cat(
-                [state.cursor_pos.reshape(B, -1), (state.selected >= 0).to(torch.float32)], -1
-            )
-        if self.config.subtask_ob:
-            obs["subtask_ob"] = state.subtask + 1
-        return obs
+        with span("ft.env.observe"):
+            obs = {}
+            B = state.group.shape[0]
+            if self.config.object_ob:
+                obs["object_ob"] = torch.cat(
+                    [state.parts.pos, state.parts.quat], dim=-1
+                ).reshape(B, -1)
+            if self.config.robot_ob:
+                obs["robot_ob"] = torch.cat(
+                    [state.cursor_pos.reshape(B, -1), (state.selected >= 0).to(torch.float32)],
+                    -1,
+                )
+            if self.config.subtask_ob:
+                obs["subtask_ob"] = state.subtask + 1
+            return obs
 
     # -- step -----------------------------------------------------------------
 
@@ -301,7 +305,8 @@ class CursorEnv:
 
         both = (state.selected[:, 0] >= 0) & (state.selected[:, 1] >= 0)
         do_connect = (action[:, 14] > 0) & both
-        connected = self._try_connect(state)
+        with span("ft.env.connect"):
+            connected = self._try_connect(state)
         missed = state._replace(connect_step=torch.zeros_like(state.connect_step))
         state = tree_where(do_connect, connected, missed)
 
@@ -348,35 +353,40 @@ class CursorEnv:
     def step_batch(self, states: CursorState, actions):
         """One control step for a batch. Returns (state, obs, reward [B],
         done [B], info)."""
-        actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
-        prev_connected = states.num_connected
-        states, held = self._pre_physics(states, actions)
+        with span("ft.env.step"):
+            actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
+            prev_connected = states.num_connected
+            with span("ft.env.control"):
+                states, held = self._pre_physics(states, actions)
 
-        gscale = torch.where(held, 0.0, 1.0)
-        parts = self._physics(
-            zero_vel(states.parts), states.group, gscale, self.config.n_substeps
-        )
-        hold3 = held[..., None]
-        parts = parts._replace(
-            lin_vel=torch.where(hold3, 0.0, parts.lin_vel),
-            ang_vel=torch.where(hold3, 0.0, parts.ang_vel),
-        )
-        states = states._replace(parts=parts)
+            gscale = torch.where(held, 0.0, 1.0)
+            parts = self._physics(
+                zero_vel(states.parts), states.group, gscale, self.config.n_substeps
+            )
+            hold3 = held[..., None]
+            parts = parts._replace(
+                lin_vel=torch.where(hold3, 0.0, parts.lin_vel),
+                ang_vel=torch.where(hold3, 0.0, parts.ang_vel),
+            )
+            states = states._replace(parts=parts)
 
-        # post-connect snap-back + one substep. The gate is a per-env select
-        # after an unconditional 1-substep launch, not a host-side
-        # `if snap.any()`: the branch would synchronise the host with the
-        # card every step, while the extra launch costs about 1/50 of the
-        # step's physics.
-        snap = states.connected_body1 >= 0
-        settled = self._physics(self._snap_move(states), states.group, gscale, 1)
-        states = states._replace(
-            parts=tree_where(snap, settled, states.parts),
-            connected_body1=torch.where(
-                snap, torch.full_like(states.connected_body1, -1), states.connected_body1
-            ),
-        )
-        return self._finish(states, prev_connected)
+            # post-connect snap-back + one substep. The gate is a per-env
+            # select after an unconditional 1-substep launch, not a host-side
+            # `if snap.any()`: the branch would synchronise the host with the
+            # card every step, while the extra launch costs about 1/50 of the
+            # step's physics.
+            with span("ft.env.connect"):
+                snap = states.connected_body1 >= 0
+                settled = self._physics(self._snap_move(states), states.group, gscale, 1)
+                states = states._replace(
+                    parts=tree_where(snap, settled, states.parts),
+                    connected_body1=torch.where(
+                        snap, torch.full_like(states.connected_body1, -1),
+                        states.connected_body1,
+                    ),
+                )
+            with span("ft.env.finish"):
+                return self._finish(states, prev_connected)
 
     # -- single-env views ------------------------------------------------------
 

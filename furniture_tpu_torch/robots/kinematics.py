@@ -217,8 +217,8 @@ def joint_dyn_matrices(robot: CompiledRobot, qpos, dt):
     each: with A = M(q) + dt·diag(D) frozen over the control step, the
     substep update is ``q̇' = G1 q̇ + G2 (τ + p_contact/dt)`` with
     G1 = A⁻¹M and G2 = dt·A⁻¹ (A is symmetric positive definite: a
-    Cholesky solve, through ``cholesky_ex`` so that nothing synchronises
-    the host on the step path)."""
+    Cholesky solve; ``cholesky_ex`` does not synchronise the host, but the
+    batched ``cholesky_solve`` does on the card)."""
     t = robot_tables(robot, qpos.device)
     M = mass_matrix(robot, fk(robot, qpos))
     D = t["damping"].get(dt)
