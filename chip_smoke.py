@@ -9,9 +9,10 @@ package is imported) on the card:
    checkout (one ``nvcc`` per source, started together: the free-part
    kernel ``megakernel.cu`` and the arm kernel ``arm_megakernel.cu``, both
    on the shared header ``physics_common.cuh``, and the lane solver
-   ``lane_solver.cu``; beside them the phase-clock builds of all three,
-   the same sources with ``-DFT_PHASE_CLOCKS``: six at once) and prints
-   the ``-Xptxas -v`` report;
+   ``lane_solver.cu``, and the joint-dynamics kernel ``arm_dynamics.cu``;
+   beside the first three their phase-clock builds, the same sources with
+   ``-DFT_PHASE_CLOCKS``: seven at once) and prints the ``-Xptxas -v``
+   report;
 2. kernel vs plain: each kernel against its plain PyTorch version on the
    card, TF32 off, at the shapes the main paths give it.
    Free-part kernel (table_lack, B=256, from a settled reset; n = 5 within
@@ -53,7 +54,11 @@ package is imported) on the card:
    ``plain_solve_contacts_lane`` on the card at 12 and 24 sweeps within
    1e-4 on both velocities; two launches on one input must agree bit for
    bit; the gap to ``engine._solve_contacts`` started cold is printed and
-   held to 2e-3 (linear) and 5e-3 (angular) with rtol 1e-3;
+   held to 2e-3 (linear) and 5e-3 (angular) with rtol 1e-3.
+   Joint-dynamics kernel (B=512), every arm in both robot variants, joint
+   positions drawn within the joint ranges: G1 and G2 within 1e-4 of the
+   float64 truth's largest entry and within 4x the plain float32 path's
+   own gap to it; two launches bit-identical;
 3. main paths, each with the launch counts set to 0 before it and read
    after it: ``make_vec_env("IKEACursor-v0", num_envs=4096)``, reset and 10
    steps of uniform random actions; ``make_vec_env("IKEASawyer-v0",
@@ -61,7 +66,7 @@ package is imported) on the card:
    ``control_type="ik"`` at 256 envs, reset and 10 steps each. The counts
    must be what the code implies (the settle launches of the free-part
    kernel; one arm-kernel launch per impedance step, ``action_repeat`` = 3
-   per ik step); the state must stay finite and in range, and a small batch
+   per ik step, and as many of the joint-dynamics kernel); the state must stay finite and in range, and a small batch
    must agree with the port's CPU run (the plain versions). Then the lane
    path, ``make_vec_env("IKEACursor-v0", num_envs=4096,
    sim=SimConfig(use_pallas="lane"))``: reset and 5 steps (100 lane-solver
@@ -201,7 +206,9 @@ package is imported) on the card:
    phases:`` and ``[time] arm kernel phases:``); the free-part kernel also
    with parts welded (table_lack with two recipe steps preassembled) beside
    the free case, both at B = 4096, n = 50; for the Sawyer
-   step also ``joint_dyn_matrices`` and the IK solve; the lane solver's ms
+   step also the joint-dynamics kernel (as the host enqueues it, queued
+   behind a sleep, and at one block), its plain version
+   ``joint_dyn_matrices`` and the IK solve; the lane solver's ms
    per launch at B = 4096, K = 210, 12 sweeps and with every lane forced
    into contact, beside ``solve_contacts_lane`` as a whole, its plain version and
    ``engine._solve_contacts`` at the same shape, its blocks an SM, latency
@@ -237,6 +244,11 @@ STEPS = 10
 LANE_STEPS = 5
 CTRL_STEPS = 5
 ARM_RUNS = (("impedance", 512), ("ik", 256))   # bench.py's Sawyer sizes
+# the joint-dynamics kernel: every arm in both robot variants at the
+# impedance batch, held to 1e-4 of the float64 truth's largest entry and to
+# 4x the plain float32 path's own gap; timed on Sawyer
+JD_B = 512
+JD_TOL, JD_PLAIN_FACTOR = 1e-4, 4.0
 # the scripted demo generator: tools/generate_demos.py's usage batch, the
 # staged connect of tests/test_dense_gen.py and the CLI's entry point
 GEN_B = 128
@@ -920,6 +932,146 @@ def drive_arm_dynamics(dev):
             "finite": bool(torch.isfinite(Jx).all() and torch.isfinite(Ju).all())}
 
 
+def float64_joint_dyn(robot, qpos, dt):
+    """``K.joint_dyn_matrices`` in float64 on the CPU, the truth the
+    joint-dynamics kernel and the plain float32 path are held to: a twin of
+    ``robot`` gets float64 copies of the cached constant tables."""
+    import dataclasses
+
+    import torch
+
+    from furniture_tpu_torch.robots import kinematics as K
+
+    twin = dataclasses.replace(robot)
+    t = K.robot_tables(twin, "cpu")
+    for k, v in list(t.items()):
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            t[k] = v.double()
+        elif isinstance(v, dict):
+            t[k] = {a: x.double() for a, x in v.items()}
+    return K.joint_dyn_matrices(twin, qpos.cpu().double(), dt)
+
+
+def joint_dyn_ops_per_env(robot) -> int:
+    """FP32 operations of the joint-dynamics function for one env, as the
+    kernel (``csrc/arm_dynamics.cu``) does it, the yardstick of its bound
+    (each add, multiply, divide, square root, max, sin and cos counts one;
+    index arithmetic does not): the chain, the bodies' and joints' world
+    frames, M's upper triangle over the bodies both joints move, the
+    factorisation, the NJ substitutions and G1, G2."""
+    import numpy as np
+
+    from furniture_tpu_torch.robots.chain import HINGE
+
+    r = robot
+    nb, nj = r.nb, r.nj
+    hinge = np.asarray(r.jnt_type) == HINGE
+    bj = np.asarray(r.body_joint)
+    qrot, qmul = 30, 28
+    chain = sum(
+        (0 if r.parent[b] < 0 else qrot + 3 + qmul)
+        + (0 if bj[b] < 0 else (4 + qmul + 2 * qrot + 6 if hinge[bj[b]] else qrot + 6))
+        for b in range(nb)
+    )
+    frames = nb * (qrot + 3 + 13 + 39 + 90) + nj * (2 * qrot + 3)
+    mass = 2 * nj                                                   # armature, dt·D
+    for b in range(nb):
+        js = np.flatnonzero(r.ancestor[b])
+        for a, k in enumerate(js):
+            for j in js[a:]:
+                mass += 12 * (hinge[k] + hinge[j]) + 7 + (21 if hinge[k] and hinge[j] else 0)
+    chol = sum(1 + (nj - k - 1) + (nj - k - 1) * (nj - k) for k in range(nj))
+    solve = sum((nj - c) ** 2 + nj * nj for c in range(nj))
+    return int(chain + frames + mass + chol + solve + nj * nj * (2 * nj + 1))
+
+
+def drive_joint_dynamics(dev):
+    """The joint-dynamics kernel (``physics/arm_dynamics.py``) on every arm,
+    both robot variants (velocity servos and motors: another D), at
+    ``JD_B`` with joint positions drawn by numpy within the joint ranges
+    (unlimited ones within +-2): G1 and G2 against the float64 truth as
+    the gap over the truth's largest entry, beside the plain float32 path
+    on the card; two launches bit-identical. Then on Sawyer's velocity
+    variant (the impedance robot) at ``JD_B``: ms a launch by CUDA events
+    over launches the host enqueues (what a step sees) and over launches
+    queued behind a sleep (the device's own time), the host's ms a call,
+    the same at one block (4 envs: the launch and one env's chain of
+    dependent steps, the latency floor), and the plain version."""
+    import numpy as np
+    import torch
+
+    from furniture_tpu_torch.config import SimConfig
+    from furniture_tpu_torch.physics.arm_dynamics import ArmDynamics, library
+    from furniture_tpu_torch.robots import AGENT_SPECS, compile_robot
+    from furniture_tpu_torch.robots import kinematics as K
+
+    dt = SimConfig().timestep
+    rng = np.random.default_rng(0)
+    rel = lambda x, t: ((x.cpu().double() - t).abs().max() / t.abs().max()).item()
+    holds, launches = [], 0
+    for agent in AGENT_SPECS:
+        for use_torque in (False, True):
+            r = compile_robot(agent, use_torque=use_torque)
+            dyn = ArmDynamics(r, dt, dev)
+            lo = np.maximum(r.jnt_range[:, 0], -2.0)
+            hi = np.minimum(r.jnt_range[:, 1], 2.0)
+            q = torch.as_tensor(rng.uniform(lo, hi, size=(JD_B, r.nj)).astype(np.float32), device=dev)
+            out, again = dyn.matrices(q), dyn.matrices(q)
+            plain = K.joint_dyn_matrices(r, q, dt)
+            truth = float64_joint_dyn(r, q, dt)
+            h = {"agent": agent, "variant": r.control_variant, "NB": r.nb, "NJ": r.nj,
+                 "same_bits": same_bits(out, again)}
+            for name, g, p, t in zip(("G1", "G2"), out, plain, truth):
+                h[name] = rel(g, t)
+                h[f"{name}_plain"] = rel(p, t)
+            holds.append(h)
+            launches += dyn.launches
+            print(f"[check] joint dynamics {agent} {r.control_variant} (NB {r.nb}, NJ {r.nj}) B={JD_B}: "
+                  f"gap to float64 over its largest entry G1 {h['G1']:.3e}, G2 {h['G2']:.3e}; plain "
+                  f"float32 on the card {h['G1_plain']:.3e}, {h['G2_plain']:.3e}; bit-identical on "
+                  f"repeat {h['same_bits']}", flush=True)
+            for name in ("G1", "G2"):
+                if not (h[name] < JD_TOL and h[name] <= JD_PLAIN_FACTOR * h[f"{name}_plain"]):
+                    fail(f"joint dynamics {agent} {r.control_variant} {name}: gap {h[name]:.3e} (plain "
+                         f"{h[f'{name}_plain']:.3e}; bounds {JD_TOL}, {JD_PLAIN_FACTOR}x plain)")
+            if not h["same_bits"]:
+                fail(f"joint dynamics {agent} {r.control_variant}: two launches differ")
+
+    r = compile_robot("Sawyer")
+    dyn = ArmDynamics(r, dt, dev)
+    q = torch.as_tensor(rng.uniform(np.maximum(r.jnt_range[:, 0], -2.0),
+                                    np.minimum(r.jnt_range[:, 1], 2.0),
+                                    size=(JD_B, r.nj)).astype(np.float32), device=dev)
+    q1 = q[:4].contiguous()
+    reps = 200
+
+    def queued_ms(x):
+        """Device ms a launch, the launches queued behind a sleep so that
+        none waits for the host."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(5e7))
+        start.record()
+        for _ in range(reps):
+            dyn.matrices(x)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    dyn.matrices(q)   # warm-up
+    ms, host_ms = cuda_and_host_ms(lambda: dyn.matrices(q), reps)
+    dev_ms, floor_ms = queued_ms(q), queued_ms(q1)
+    K.joint_dyn_matrices(r, q, dt)   # warm-up
+    plain_ms, plain_host_ms = cuda_and_host_ms(lambda: K.joint_dyn_matrices(r, q, dt), 5)
+    t = dyn._dev
+    nbytes = JD_B * 4 * (r.nj + 2 * r.nj * r.nj) + sum(x.numel() * x.element_size() for x in t.values())
+    ops = joint_dyn_ops_per_env(r) * JD_B
+    return {"holds": holds, "launches": launches + dyn.launches, "ms": ms, "host_ms": host_ms,
+            "device_ms": dev_ms, "latency_floor_ms": floor_ms, "plain_ms": plain_ms,
+            "plain_host_ms": plain_host_ms, "ops": ops, "bytes": nbytes,
+            "smem_bytes": library().arm_dyn_smem_bytes(r.nb, r.nj)}
+
+
 def drive_rl(dev):
     """The RL stack on the cursor (table_lack, default ``SimConfig``):
     PPO, SAC, one GAIL iteration, BC on the committed demos, the
@@ -1589,7 +1741,7 @@ def main() -> None:
     from furniture_tpu_torch.config import SimConfig
     from furniture_tpu_torch.envs.arm import ArmEnv
     from furniture_tpu_torch.envs.cursor import CursorEnv
-    from furniture_tpu_torch.physics import arm_megakernel, engine, lane_solver, megakernel
+    from furniture_tpu_torch.physics import arm_dynamics, arm_megakernel, engine, lane_solver, megakernel
     from furniture_tpu_torch.planning import CEMConfig, MPPIConfig, make_cem, make_mppi
     from furniture_tpu_torch.robots import kinematics as K
     from furniture_tpu_torch.physics.state import PartState
@@ -1605,7 +1757,7 @@ def main() -> None:
     stamp("build")
     t0 = time.perf_counter()
     sources = [megakernel.SOURCE, arm_megakernel.SOURCE, lane_solver.SOURCE]
-    builds = [(s, ()) for s in sources] + [(s, _cuda.PHASE_CLOCKS) for s in sources]
+    builds = [(s, ()) for s in sources + [arm_dynamics.SOURCE]] + [(s, _cuda.PHASE_CLOCKS) for s in sources]
     procs = [_cuda.start_build(s, d) for s, d in builds]
     for p in procs:
         _cuda.finish_build(p)
@@ -1618,6 +1770,7 @@ def main() -> None:
     megakernel.library()
     arm_megakernel.library()
     lane_solver.library()
+    arm_dynamics.library()
     megakernel.library(_cuda.PHASE_CLOCKS)
     arm_megakernel.library(_cuda.PHASE_CLOCKS)
     lane_solver.library(_cuda.PHASE_CLOCKS)
@@ -1966,6 +2119,10 @@ def main() -> None:
             hold_lane(f"{tag}, every lane masked", tables,
                       (c._replace(mask=torch.zeros_like(c.mask)),) + args[1:], exact=True)
 
+    stamp("joint-dynamics kernel vs plain")
+    jd = drive_joint_dynamics(dev)
+    jd_worst = max(max(h["G1"], h["G2"]) for h in jd["holds"])
+
     # -- 3. main path -----------------------------------------------------------
     stamp("cursor main path")
     vec = ft.make_vec_env("IKEACursor-v0", num_envs=MAIN_B, seed=0)
@@ -2044,7 +2201,7 @@ def main() -> None:
     stamp("arm main paths")
     from furniture_tpu_torch.convert import arm_state_from_numpy, arm_state_to_numpy
 
-    arm_vecs, arm_launches, free_launches_arm = {}, {}, 0
+    arm_vecs, arm_launches, dyn_launches, free_launches_arm = {}, {}, {}, 0
     for control_type, nb in ARM_RUNS:
         avec = ft.make_vec_env("IKEASawyer-v0", num_envs=nb, seed=0, control_type=control_type)
         aenv = avec.env
@@ -2053,6 +2210,7 @@ def main() -> None:
         acts = [torch.rand((nb, aenv.dof), generator=agen, device=dev) * 2 - 1 for _ in range(STEPS)]
         aenv.physics.launches = 0
         aenv.physics.free.launches = 0
+        aenv.dynamics.launches = 0
         avec.reset()
         dones = []
         for a in acts:
@@ -2063,11 +2221,14 @@ def main() -> None:
         want_arm = per_step * STEPS
         want_free = 10 + 10 * sum(dones)
         got_arm, got_free = aenv.physics.launches, aenv.physics.free.launches
+        got_dyn = aenv.dynamics.launches
         print(f"[main] make_vec_env IKEASawyer-v0 {control_type} B={nb}: reset + {STEPS} steps, "
-              f"arm kernel launches {got_arm} (expected {want_arm}), free-part kernel launches "
+              f"arm kernel launches {got_arm} (expected {want_arm}), joint-dynamics kernel launches "
+              f"{got_dyn} (expected {want_arm}), free-part kernel launches "
               f"{got_free} (expected {want_free}), steps with a done {sum(dones)}")
-        if got_arm != want_arm or got_free != want_free:
-            fail(f"{control_type}: launch counts {got_arm}, {got_free} != {want_arm}, {want_free}")
+        if got_arm != want_arm or got_free != want_free or got_dyn != want_arm:
+            fail(f"{control_type}: launch counts {got_arm}, {got_dyn}, {got_free} != {want_arm}, "
+                 f"{want_arm}, {want_free}")
         s = avec.state
         for t in list(s.parts) + [s.qpos, s.qvel, s.ik_target_pos, s.hand_quat_init, rew]:
             if not torch.isfinite(t).all():
@@ -2093,6 +2254,7 @@ def main() -> None:
               f"{int(s.touched.sum())}, mean reward of last step {rew.mean().item():.4f}")
         arm_vecs[control_type] = (avec, acts)
         arm_launches[control_type] = got_arm
+        dyn_launches[control_type] = got_dyn
         free_launches_arm += got_free
 
         # a small batch through the card and through the CPU (plain versions)
@@ -2951,8 +3113,19 @@ def main() -> None:
     imp_ms = arm_step["impedance"][0]
     print(f"[time] arm kernel n={an} B={aB}: {arm_kernel_ms:.4f} ms/launch; plain version "
           f"{arm_plain_ms:.3f} ms; kernel share of an impedance step {arm_kernel_ms / imp_ms:.3f}; "
-          f"joint_dyn_matrices {dyn_ms:.3f} ms; rest of the step "
-          f"{imp_ms - arm_kernel_ms - dyn_ms:.3f} ms")
+          f"joint dynamics (kernel) {jd['ms']:.4f} ms; rest of the step "
+          f"{imp_ms - arm_kernel_ms - jd['ms']:.3f} ms")
+    jd_t_ops = jd["ops"] / PEAK_FP32_FLOPS * 1e3
+    jd_t_bytes = jd["bytes"] / PEAK_HBM_BYTES * 1e3
+    jd_bound_ms = max(jd_t_ops, jd_t_bytes)
+    jd_bound_by = "operations" if jd_t_ops >= jd_t_bytes else "bytes"
+    print(f"[time] joint-dynamics kernel Sawyer B={JD_B}: {jd['ms']:.4f} ms a launch as the host "
+          f"enqueues them ({jd['host_ms']:.4f} ms of host time a call), {jd['device_ms']:.4f} ms queued "
+          f"behind a sleep (the device's own time); one block (4 envs) {jd['latency_floor_ms']:.4f} ms "
+          f"(the latency floor); plain version (joint_dyn_matrices) {jd['plain_ms']:.3f} ms ({dyn_ms:.3f} "
+          f"in this phase; host {jd['plain_host_ms']:.3f} ms a call); bound {jd['ops']:.4g} FP32 ops -> "
+          f"{jd_t_ops:.5f} ms, {jd['bytes']} B -> {jd_t_bytes:.5f} ms ({jd_bound_by}); kernel at "
+          f"{jd_bound_ms / jd['device_ms']:.4f} of its bound; {jd['smem_bytes']} B of shared memory a block")
     print(f"[time] ik B={ik_B}: _ik_prepare (20 DLS iterations) {ik_ms:.3f} ms of the "
           f"{arm_step['ik'][0]:.3f} ms step")
     print(f"[time] arm bound: {a_ops:.4g} FP32 ops -> {a_t_ops:.4f} ms at {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s "
@@ -3214,6 +3387,25 @@ def main() -> None:
         "env_steps_per_s": lane_steps_per_s,
         "mppi_plans_per_s": {"default": 1.0 / min(mppi_s[1:]), "lane": 1.0 / lane_plan_s},
         "routes_at_bench_batch": lane_routes,
+    }, {
+        "name": "arm_joint_dynamics",
+        "route": "cuda",
+        "source": "furniture_tpu_torch/physics/csrc/arm_dynamics.cu",
+        "replaces": None,
+        "launches": jd["launches"] + sum(dyn_launches.values()),
+        "max_rel_err": jd_worst,
+        "ms": jd["ms"],
+        "device_ms": jd["device_ms"],
+        "host_ms": jd["host_ms"],
+        "latency_floor_ms": jd["latency_floor_ms"],
+        "plain_ms": jd["plain_ms"],
+        "bound_ms": jd_bound_ms,
+        "bound_by": jd_bound_by,
+        "library_ms": None,
+        "bound_ms_at_power_limit": jd_bound_ms / scale,
+        "smem_bytes": jd["smem_bytes"],
+        "launches_by_path": dyn_launches,
+        "holds": jd["holds"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

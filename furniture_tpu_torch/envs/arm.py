@@ -32,18 +32,17 @@ envs at once (every state field leads with the env dimension B). Semantics:
   eef_velr] per arm; impedance/torque prepend [joint_pos, joint_vel].
 
 Every control step is one launch of the arm kernel through
-``ArmMegaPhysics.control_step`` (``action_repeat`` launches for ik); the
-reset's ten settle rounds go through the free-part kernel or, with
-``SimConfig(use_pallas="lane")``, through the lane-solver backend. Where the JAX
-package branches per env with ``lax.cond``, this module computes both sides
-and selects on the batch. On the card an impedance step synchronises the
-host twice (three times a ``VecEnv.step`` with its ``done.any()``; counted
-under ``torch.profiler`` on an H100): in ``torch.cholesky_solve`` of
-``kinematics.joint_dyn_matrices`` (span ``ft.env.dynamics``) and in the
-list index of ``transforms.convert_quat`` in ``observe`` (span
-``ft.env.observe``: a blocking host-to-device copy of the index);
-``position_orientation`` and ``position`` add their batched
-``torch.linalg.svd``.
+``ArmMegaPhysics.control_step`` (``action_repeat`` launches for ik), after
+one launch of the joint-dynamics kernel (``physics/arm_dynamics.py``) that
+computes its matrices G1, G2; the reset's ten settle rounds go through the
+free-part kernel or, with ``SimConfig(use_pallas="lane")``, through the
+lane-solver backend. Where the JAX package branches per env with
+``lax.cond``, this module computes both sides and selects on the batch. On
+the card an impedance step synchronises the host once (twice a
+``VecEnv.step`` with its ``done.any()``): in the list index of
+``transforms.convert_quat`` in ``observe`` (span ``ft.env.observe``: a
+blocking host-to-device copy of the index); ``position_orientation`` and
+``position`` add their batched ``torch.linalg.svd``.
 
 Entry points run on CUDA by default (``device=None``); only an explicit
 ``device="cpu"`` runs on the CPU, where the physics is the kernels' plain
@@ -68,6 +67,7 @@ from ..controllers.osc import (
     osc_torques,
 )
 from ..models import CompiledModel, compile_from_config
+from ..physics.arm_dynamics import ArmDynamics
 from ..physics.arm_megakernel import ArmMegaPhysics
 from ..physics.collide import floor_contacts
 from ..physics.engine import physics_tables, robot_contact_tables
@@ -170,6 +170,8 @@ class ArmEnv:
         # the arm kernel's wrapper (kernel on CUDA, plain on CPU); its
         # ``free`` is the free-part kernel's wrapper for the settle rounds
         self.physics = ArmMegaPhysics(self.tables, self.robot, cfg.sim, self.device)
+        # the joint-dynamics kernel's wrapper (kernel on CUDA, plain on CPU)
+        self.dynamics = ArmDynamics(self.robot, cfg.sim.timestep, self.device)
         # the reset's settle rounds: the free-part kernel, or the lane backend
         self._settle_physics = (
             make_batched_substeps(self.tables, cfg.sim, self.device)
@@ -258,11 +260,11 @@ class ArmEnv:
     def _substeps(self, states: ArmState, ctrl, tau_extra, n: int) -> ArmState:
         """One control step of ``n`` coupled substeps for the whole batch
         through the arm kernel's wrapper; the joint matrices G1, G2 are
-        computed once per control step."""
-        cfg = self.config.sim
+        computed once per control step, by the joint-dynamics kernel's
+        wrapper."""
         B = ctrl.shape[0]
         with span("ft.env.dynamics"):
-            G1, G2 = K.joint_dyn_matrices(self.robot, states.qpos, cfg.timestep)
+            G1, G2 = self.dynamics.matrices(states.qpos.contiguous())
         with span("ft.env.physics"):
             if tau_extra is None:
                 tau_extra = torch.zeros((B, self.robot.nj), dtype=torch.float32,

@@ -217,8 +217,11 @@ def joint_dyn_matrices(robot: CompiledRobot, qpos, dt):
     each: with A = M(q) + dt·diag(D) frozen over the control step, the
     substep update is ``q̇' = G1 q̇ + G2 (τ + p_contact/dt)`` with
     G1 = A⁻¹M and G2 = dt·A⁻¹ (A is symmetric positive definite: a
-    Cholesky solve; ``cholesky_ex`` does not synchronise the host, but the
-    batched ``cholesky_solve`` does on the card)."""
+    Cholesky solve). This is the plain version, which the iLQR planner
+    differentiates through: the arm env's step computes the same matrices
+    on the card in one launch of the joint-dynamics kernel
+    (``physics/arm_dynamics.py``). On the card this version synchronises
+    the host in the batched ``cholesky_solve`` (``cholesky_ex`` does not)."""
     t = robot_tables(robot, qpos.device)
     M = mass_matrix(robot, fk(robot, qpos))
     D = t["damping"].get(dt)
