@@ -1996,7 +1996,10 @@ def main() -> None:
     env.physics.smem_limit = 64 * 1024
     if env.physics.lane_buffer()[2]:
         fail("the lowered shared-memory limit did not select the global-scratch route")
+    launches, scratch = env.physics.launches, env.physics.scratch_launches
     hold_arm(env, st, ctrl, "Sawyer gripped, global scratch", ((5, 5e-4),), True, True)
+    if env.physics.scratch_launches - scratch != env.physics.launches - launches:
+        fail("a launch under the lowered shared-memory limit was not counted in scratch_launches")
     env, st, ctrl = staged("Sawyer", "free")
     hold_arm(env, st, ctrl, "Sawyer free", ((50, 1e-3),), False, False)
     env, st, ctrl = staged("Sawyer", "grip", robot_coupling=False)

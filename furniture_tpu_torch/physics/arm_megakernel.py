@@ -24,7 +24,9 @@ lanes and the robot's constant tables, and wraps the launch:
   ``collide.robot_contacts`` and ``engine`` substep. It is what CPU tensors
   run and what the kernel is held against; nothing on the card's main path
   calls it.
-* ``launches`` counts kernel launches, and nothing else.
+* ``launches`` counts kernel launches, and nothing else;
+  ``scratch_launches`` counts those of them that took the global-scratch
+  route (``lane_buffer``: the lane working set over ``smem_limit``).
 
 Where the JAX package's eager path and its Pallas kernel differ, both
 versions here follow the eager path: the optional held-velocity clamp acts
@@ -154,6 +156,7 @@ class ArmMegaPhysics:
         self.cfg = cfg_sim
         self.device = free.device
         self.launches = 0
+        self.scratch_launches = 0
         self.robot = robot
         self.smem_limit = MAX_SMEM
         self.P, self.Kf, self.Kp, self.Ke = free.P, free.Kf, free.Kp, free.Ke
@@ -478,6 +481,7 @@ class ArmMegaPhysics:
         """One launch of the CUDA kernel; raises on anything it cannot take."""
         out = self._launch((), parts, group, gscale, qpos, qvel, ctrl, tau_extra, G1, G2, n)
         self.launches += 1
+        self.scratch_launches += int(not out[5])
         return out[:4]
 
     def phase_clocks(self, parts: PartState, group, gscale, qpos, qvel, ctrl, tau_extra,
@@ -493,7 +497,8 @@ class ArmMegaPhysics:
     def _launch(self, defines, parts: PartState, group, gscale, qpos, qvel, ctrl,
                 tau_extra, G1, G2, n: int):
         """Check the inputs, then launch the build of the kernel with
-        ``defines``: ``(parts, qpos, qvel, touch, phase clocks or None)``."""
+        ``defines``: ``(parts, qpos, qvel, touch, phase clocks or None,
+        working set in shared memory?)``."""
         B, P = parts.pos.shape[:2]
         NJ, NA = self.NJ, self.NA
         dev = parts.pos.device
@@ -569,7 +574,8 @@ class ArmMegaPhysics:
             raise RuntimeError(
                 "arm megakernel launch failed: " + lib.arm_error_string(err).decode()
             )
-        return out, qpos_out, qvel_out, touch.reshape(B, 2 * self.n_arms, P) != 0, clocks
+        return (out, qpos_out, qvel_out, touch.reshape(B, 2 * self.n_arms, P) != 0, clocks,
+                in_smem)
 
     # -- work model (for the roofline bound) -----------------------------------
 

@@ -14,7 +14,10 @@ that existed only for the TPU's matrix unit) and wraps the launch:
   tensors and runs the plain PyTorch version (``engine.substeps``) for CPU
   tensors. There is no fallback: any other device, or a kernel that fails
   to build or launch, raises.
-* ``launches`` counts kernel launches, and nothing else.
+* ``launches`` counts kernel launches, and nothing else;
+  ``scratch_launches`` counts those of them that kept the lane working set
+  in the global scratch buffer (the model's working set over the shared
+  memory a block may have), so a caller can tell which route a model ran.
 
 The kernel reads its lanes in *slot* order (:func:`slot_tables`): the lanes
 sorted by their a-side part and dealt to the threads so that the lanes of a
@@ -281,6 +284,7 @@ class MegaPhysics:
             # tensors report a concrete index; compare against the same
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.launches = 0
+        self.scratch_launches = 0
 
         gp = np.asarray(model_np["geom_part"])
         G = len(gp)
@@ -473,8 +477,9 @@ class MegaPhysics:
 
     def kernel_substeps(self, parts: PartState, group, gscale, n: int) -> PartState:
         """One launch of the CUDA kernel; raises on anything it cannot take."""
-        out, _ = self._launch((), parts, group, gscale, n)
+        out, _, in_smem = self._launch((), parts, group, gscale, n)
         self.launches += 1
+        self.scratch_launches += int(not in_smem)
         return out
 
     def phase_clocks(self, parts: PartState, group, gscale, n: int):
@@ -488,7 +493,8 @@ class MegaPhysics:
 
     def _launch(self, defines, parts: PartState, group, gscale, n: int):
         """Check the inputs, then launch the build of the kernel with
-        ``defines``: ``(result, phase clocks or None)``."""
+        ``defines``: ``(result, phase clocks or None, working set in shared
+        memory?)``."""
         B, P = parts.pos.shape[:2]
         dev = parts.pos.device
         want = {
@@ -541,7 +547,7 @@ class MegaPhysics:
             raise RuntimeError(
                 "megakernel launch failed: " + lib.mega_error_string(err).decode()
             )
-        return out, clocks
+        return out, clocks, in_smem
 
     # -- work model (for the roofline bound) -----------------------------------
 
