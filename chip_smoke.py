@@ -9,7 +9,8 @@ package is imported) on the card:
    checkout (one ``nvcc`` per source, started together: the free-part
    kernel ``megakernel.cu`` and the arm kernel ``arm_megakernel.cu``, both
    on the shared header ``physics_common.cuh``, and the lane solver
-   ``lane_solver.cu``, and the joint-dynamics kernel ``arm_dynamics.cu``;
+   ``lane_solver.cu``, and the joint-dynamics kernel ``arm_dynamics.cu`` and
+   the IK kernel ``arm_ik.cu``, both on the chain header ``arm_chain.cuh``;
    beside the first three their phase-clock builds, the same sources with
    ``-DFT_PHASE_CLOCKS``: seven at once) and prints the ``-Xptxas -v``
    report;
@@ -82,9 +83,15 @@ package is imported) on the card:
    generator (``make_vec_env("IKEASawyerGen-v0")``, ik, default
    ``SimConfig``) at 128 envs, ``reset_batch`` and 30 steps of
    ``scripted_action`` + ``step_batch`` (3 arm-kernel launches a step, the
-   reset's 10 of the free-part kernel), finite, not unstable, some env past
-   the phase it started in, the step and the policy decision timed apart
-   (median and spread over the last 20 steps); a staged connect at 8 envs
+   reset's 10 of the free-part kernel, one IK-kernel launch a step), finite,
+   not unstable, some env past the phase it started in, the step and the
+   policy decision timed apart (median and spread over the last 20 steps);
+   the IK kernel (``controllers/ik.py``, one launch for the IK target's
+   update and the 20-iteration DLS IK) against the plain version on the
+   card at the generator's last state and action: no further from the
+   float64 truth (the plain version on the CPU) than 4x the plain float32
+   path, by the rows' 90th percentile of their largest gap (and at the ik
+   batch, 256, after the arm main paths: equal to it bit for bit); a staged connect at 8 envs
    (a leg placed between the fingers, 8 closing steps, then up to 250
    policy steps from ``ALIGN_CONN``) that must connect in some env, whose
    pre-connect state, restored with ``restore_snapshot`` and stepped with
@@ -249,6 +256,11 @@ ARM_RUNS = (("impedance", 512), ("ik", 256))   # bench.py's Sawyer sizes
 # 4x the plain float32 path's own gap; timed on Sawyer
 JD_B = 512
 JD_TOL, JD_PLAIN_FACTOR = 1e-4, 4.0
+# the IK kernel: held to 4x the plain float32 path's gap to the float64
+# truth (rows' 90th percentile: a converged DLS solve carries ~5e-4 rad of
+# arccos noise in either path); timed on Sawyer at the ik cell's batch
+IK_PLAIN_FACTOR = 4.0
+IK_OUTPUTS = ("ik_target_pos", "hand_quat_init", "q_cmd")
 # the scripted demo generator: tools/generate_demos.py's usage batch, the
 # staged connect of tests/test_dense_gen.py and the CLI's entry point
 GEN_B = 128
@@ -370,6 +382,22 @@ def cuda_and_host_ms(fn, reps: int) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, host
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn`` over ``reps`` calls queued behind a
+    sleep, so that no launch waits for the host: the device's own time."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(5e7))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def median_round(fn, reps: int, rounds: int = 3):
@@ -934,8 +962,15 @@ def drive_arm_dynamics(dev):
 
 def float64_joint_dyn(robot, qpos, dt):
     """``K.joint_dyn_matrices`` in float64 on the CPU, the truth the
-    joint-dynamics kernel and the plain float32 path are held to: a twin of
-    ``robot`` gets float64 copies of the cached constant tables."""
+    joint-dynamics kernel and the plain float32 path are held to."""
+    from furniture_tpu_torch.robots import kinematics as K
+
+    return K.joint_dyn_matrices(float64_twin(robot), qpos.cpu().double(), dt)
+
+
+def float64_twin(robot):
+    """A twin of ``robot`` whose cached constant tables are float64, for
+    the plain versions' float64 truth on the CPU."""
     import dataclasses
 
     import torch
@@ -949,7 +984,76 @@ def float64_joint_dyn(robot, qpos, dt):
             t[k] = v.double()
         elif isinstance(v, dict):
             t[k] = {a: x.double() for a, x in v.items()}
-    return K.joint_dyn_matrices(twin, qpos.cpu().double(), dt)
+    return twin
+
+
+def ik_plain(ik, args, robot=None):
+    """The IK kernel's plain version (``controllers/ik.py::ik_prepare``)
+    for the wrapper ``ik`` on ``args``."""
+    from furniture_tpu_torch.controllers.ik import ik_prepare
+
+    box = ik.box if robot is None else tuple(b.cpu().double() for b in ik.box)
+    return ik_prepare(robot or ik.robot, ik.control_type, ik.move_speed, ik.rotate_speed, *box, *args)
+
+
+def hold_ik_kernel(env, state, action) -> dict:
+    """The IK kernel against its plain version on the card and the float64
+    truth on the CPU, at ``state`` and ``action``: each output's rows' 90th
+    percentile of their largest gap to the truth; the kernel's launches."""
+    import torch
+
+    args = (state.qpos.contiguous(), state.ik_target_pos.contiguous(),
+            state.hand_quat_init.contiguous(), action.contiguous())
+    before = env.ik.launches
+    got = env.ik.prepare(*args)
+    h = {"launches": env.ik.launches - before}
+    plain = ik_plain(env.ik, args)
+    truth = ik_plain(env.ik, tuple(x.cpu().double() for x in args), float64_twin(env.robot))
+
+    def p90(x, t):
+        d = (x.cpu().double() - t).abs().reshape(x.shape[0], -1).amax(1)
+        return torch.quantile(d, 0.9).item()
+
+    for n, g, p, t in zip(IK_OUTPUTS, got, plain, truth):
+        h[n], h[n + "_plain"] = p90(g, t), p90(p, t)
+    return h
+
+
+def ik_ops_per_env(robot, control_type: str) -> int:
+    """FP32 operations of the IK control step for one env, as the IK kernel
+    (``csrc/arm_ik.cu``) does it, the yardstick of its bound (each add,
+    multiply, divide, square root, max, min, sin, cos and arccos counts
+    one; index arithmetic, copies and sign flips do not): per arm, the
+    target's update and 21 forward kinematics along the hand's chain, and
+    in each of 20 iterations the pose error, the Jacobian columns, J J^T +
+    damping I, the 6x6 factorisation, the two substitutions, J^T x and the
+    clamps."""
+    from furniture_tpu_torch.controllers.ik import ITERS, hand_chain
+    from furniture_tpu_torch.robots.chain import HINGE
+
+    qrot, qmul, qinv, qnorm = 30, 28, 12, 13
+    # the move and its box (15); the orientation target: euler angles to a
+    # quat, product, normalise (79), or normalise, product, normalise (54);
+    # its 45-degree limit (47); the slerp (71); the position target (24)
+    orient = 2 * qnorm + qmul if control_type == "ik_quaternion" else 6 + 12 + 20 + qmul + qnorm
+    target = 15 + orient + (qinv + qmul + 7) + (3 * qnorm + 7 + 13 + 3 * 4) + 24
+    err = 3 + qinv + qmul + 2 + 2 + 7 + 3 * 2
+    chol = sum(2 * j + 1 + (5 - j) * (2 * j + 1) for j in range(6))
+    solve = 2 * sum(2 * i + 1 for i in range(6))
+    ops = 0
+    for arm in robot.arms:
+        fk = 0
+        for c, b in enumerate(hand_chain(robot, arm)):
+            j = int(robot.body_joint[b])
+            fk += 0 if c == 0 else qrot + 3 + qmul
+            if j >= 0:
+                fk += 6 + qmul + 2 * qrot + 6 if int(robot.jnt_type[j]) == HINGE else qrot + 6
+        na = len(robot.arm_joints[arm])
+        jac = na * (2 * qrot + 3 + 12)
+        jjt = 21 * 2 * na + 6
+        step = na * (2 * 6 + 4)
+        ops += target + (ITERS + 1) * fk + ITERS * (err + jac + jjt + chol + solve + step)
+    return ops
 
 
 def joint_dyn_ops_per_env(robot) -> int:
@@ -1044,23 +1148,9 @@ def drive_joint_dynamics(dev):
                                     size=(JD_B, r.nj)).astype(np.float32), device=dev)
     q1 = q[:4].contiguous()
     reps = 200
-
-    def queued_ms(x):
-        """Device ms a launch, the launches queued behind a sleep so that
-        none waits for the host."""
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(5e7))
-        start.record()
-        for _ in range(reps):
-            dyn.matrices(x)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     dyn.matrices(q)   # warm-up
     ms, host_ms = cuda_and_host_ms(lambda: dyn.matrices(q), reps)
-    dev_ms, floor_ms = queued_ms(q), queued_ms(q1)
+    dev_ms, floor_ms = queued_ms(lambda: dyn.matrices(q), reps), queued_ms(lambda: dyn.matrices(q1), reps)
     K.joint_dyn_matrices(r, q, dt)   # warm-up
     plain_ms, plain_host_ms = cuda_and_host_ms(lambda: K.joint_dyn_matrices(r, q, dt), 5)
     t = dyn._dev
@@ -1739,6 +1829,7 @@ def main() -> None:
     from furniture_tpu_torch import _cuda
     from furniture_tpu_torch.config import EnvConfig
     from furniture_tpu_torch.config import SimConfig
+    from furniture_tpu_torch.controllers import ik as ik_kernel
     from furniture_tpu_torch.envs.arm import ArmEnv
     from furniture_tpu_torch.envs.cursor import CursorEnv
     from furniture_tpu_torch.physics import arm_dynamics, arm_megakernel, engine, lane_solver, megakernel
@@ -1757,7 +1848,8 @@ def main() -> None:
     stamp("build")
     t0 = time.perf_counter()
     sources = [megakernel.SOURCE, arm_megakernel.SOURCE, lane_solver.SOURCE]
-    builds = [(s, ()) for s in sources + [arm_dynamics.SOURCE]] + [(s, _cuda.PHASE_CLOCKS) for s in sources]
+    builds = [(s, ()) for s in sources + [arm_dynamics.SOURCE, ik_kernel.SOURCE]] + [
+        (s, _cuda.PHASE_CLOCKS) for s in sources]
     procs = [_cuda.start_build(s, d) for s, d in builds]
     for p in procs:
         _cuda.finish_build(p)
@@ -1771,6 +1863,7 @@ def main() -> None:
     arm_megakernel.library()
     lane_solver.library()
     arm_dynamics.library()
+    ik_kernel.library()
     megakernel.library(_cuda.PHASE_CLOCKS)
     arm_megakernel.library(_cuda.PHASE_CLOCKS)
     lane_solver.library(_cuda.PHASE_CLOCKS)
@@ -2214,6 +2307,8 @@ def main() -> None:
         aenv.physics.launches = 0
         aenv.physics.free.launches = 0
         aenv.dynamics.launches = 0
+        if aenv.ik is not None:
+            aenv.ik.launches = 0
         avec.reset()
         dones = []
         for a in acts:
@@ -2225,13 +2320,15 @@ def main() -> None:
         want_free = 10 + 10 * sum(dones)
         got_arm, got_free = aenv.physics.launches, aenv.physics.free.launches
         got_dyn = aenv.dynamics.launches
+        got_ik, want_ik = (aenv.ik.launches, STEPS) if aenv.ik is not None else (0, 0)
         print(f"[main] make_vec_env IKEASawyer-v0 {control_type} B={nb}: reset + {STEPS} steps, "
               f"arm kernel launches {got_arm} (expected {want_arm}), joint-dynamics kernel launches "
               f"{got_dyn} (expected {want_arm}), free-part kernel launches "
-              f"{got_free} (expected {want_free}), steps with a done {sum(dones)}")
-        if got_arm != want_arm or got_free != want_free or got_dyn != want_arm:
-            fail(f"{control_type}: launch counts {got_arm}, {got_dyn}, {got_free} != {want_arm}, "
-                 f"{want_arm}, {want_free}")
+              f"{got_free} (expected {want_free}), IK kernel launches {got_ik} (expected {want_ik}), "
+              f"steps with a done {sum(dones)}")
+        if got_arm != want_arm or got_free != want_free or got_dyn != want_arm or got_ik != want_ik:
+            fail(f"{control_type}: launch counts {got_arm}, {got_dyn}, {got_free}, {got_ik} != {want_arm}, "
+                 f"{want_arm}, {want_free}, {want_ik}")
         s = avec.state
         for t in list(s.parts) + [s.qpos, s.qvel, s.ik_target_pos, s.hand_quat_init, rew]:
             if not torch.isfinite(t).all():
@@ -2439,6 +2536,7 @@ def main() -> None:
     ggen.manual_seed(5)
     genv.physics.launches = 0
     genv.physics.free.launches = 0
+    genv.ik.launches = 0
     gstate = genv.reset_batch(GEN_B, ggen)
     pol = genv.init_policy_state(gstate, ggen)
     start_phase = pol.phase.clone()   # table_lack's first part starts past INIT_GRIP
@@ -2458,11 +2556,13 @@ def main() -> None:
         phase_hist.append(torch.bincount(pol.phase.long(), minlength=SG.N_GEN_PHASES))
         left_start |= pol.phase != start_phase
     gen_arm_launches, gen_free_launches = genv.physics.launches, genv.physics.free.launches
+    gen_ik_launches = genv.ik.launches
     want_arm = genv.config.action_repeat * GEN_STEPS
     hist = torch.stack(phase_hist).sum(0).tolist()
     print(f"[main] make_vec_env IKEASawyerGen-v0 (ik) B={GEN_B}: reset_batch + {GEN_STEPS} steps of "
           f"scripted_action + step_batch, arm kernel launches {gen_arm_launches} (expected {want_arm}), "
-          f"free-part kernel launches {gen_free_launches} (expected 10)")
+          f"free-part kernel launches {gen_free_launches} (expected 10), IK kernel launches "
+          f"{gen_ik_launches} (expected {GEN_STEPS})")
     print(f"[main] generator: policy phases over the run (env-steps per phase) {hist}; final phases "
           f"{torch.bincount(pol.phase.long(), minlength=SG.N_GEN_PHASES).tolist()}; envs that left "
           f"their starting phase {int(left_start.sum())}; dense phases "
@@ -2470,6 +2570,8 @@ def main() -> None:
           f"{int(gstate.touched.sum())}; mean reward of the last step {grew.mean().item():.3f}")
     if gen_arm_launches != want_arm or gen_free_launches != 10:
         fail(f"generator launch counts {gen_arm_launches}, {gen_free_launches} != {want_arm}, 10")
+    if gen_ik_launches != GEN_STEPS:
+        fail(f"generator IK kernel launches {gen_ik_launches} != {GEN_STEPS}")
     for t in list(gstate.parts) + [gstate.qpos, gstate.qvel, grew, ga]:
         if not torch.isfinite(t).all():
             fail("generator rollout: state, reward or action not finite")
@@ -2497,6 +2599,17 @@ def main() -> None:
     gen_ops = {"scripted_action": pol_ops.n, "step_batch": step_ops.n, "_ik_prepare": ik_ops.n}
     print(f"[time] generator: ATen operations dispatched by one scripted_action {pol_ops.n}, one "
           f"step_batch {step_ops.n} (of which _ik_prepare {ik_ops.n})")
+    ik_hold = hold_ik_kernel(genv, gstate, ga)
+    print(f"[check] IK kernel B={GEN_B} at the generator's last state and action (rows' p90 of the "
+          f"largest gap to the float64 truth): " + ", ".join(
+              f"{n} {ik_hold[n]:.3e} (plain float32 on the card {ik_hold[n + '_plain']:.3e})"
+              for n in IK_OUTPUTS) + f"; ArmIK.launches of the check {ik_hold['launches']} (expected 1)")
+    for n in IK_OUTPUTS:
+        if not ik_hold[n] <= IK_PLAIN_FACTOR * ik_hold[n + "_plain"]:
+            fail(f"IK kernel {n}: gap {ik_hold[n]:.3e} over {IK_PLAIN_FACTOR}x the plain path's "
+                 f"{ik_hold[n + '_plain']:.3e}")
+    if ik_hold["launches"] != 1:
+        fail(f"IK kernel launches of one prepare {ik_hold['launches']} != 1")
     tail = lambda xs: (float(np.median(xs[-20:])), min(xs[-20:]), max(xs[-20:]))
     gen_step_t, gen_policy_t = tail(gen_step_ms), tail(gen_policy_ms)
     print(f"[time] generator B={GEN_B}, the last 20 of {GEN_STEPS} steps: step_batch (ik) median "
@@ -3102,7 +3215,26 @@ def main() -> None:
     ik_vec, ik_acts = arm_vecs["ik"]
     ik_env, ik_B = ik_vec.env, ARM_RUNS[1][1]
     ik_state = ik_env.reset_batch(ik_B, gen)
-    ik_ms = cuda_ms(lambda: ik_env._ik_prepare(ik_state, ik_acts[0]), 3)
+    ikw = ik_env.ik
+    ik_args = (ik_state.qpos.contiguous(), ik_state.ik_target_pos.contiguous(),
+               ik_state.hand_quat_init.contiguous(), ik_acts[0].contiguous())
+    ik_one = tuple(x[:4].contiguous() for x in ik_args)
+    ik_same = same_bits(ikw.prepare(*ik_args), ik_plain(ikw, ik_args))
+    print(f"[check] IK kernel B={ik_B}: bit-identical to its plain version on the card {ik_same}")
+    if not ik_same:
+        fail(f"IK kernel B={ik_B}: differs from its plain version on the card")
+    ik_ms, ik_host_ms = cuda_and_host_ms(lambda: ikw.prepare(*ik_args), 200)
+    ik_dev_ms = queued_ms(lambda: ikw.prepare(*ik_args), 200)
+    ik_floor_ms = queued_ms(lambda: ikw.prepare(*ik_one), 200)
+    ik_plain(ikw, ik_args)  # warm-up
+    ik_plain_ms, ik_plain_host_ms = cuda_and_host_ms(lambda: ik_plain(ikw, ik_args), 3)
+    ik_ops = ik_ops_per_env(ik_env.robot, ik_env.control_type) * ik_B
+    ik_bytes = sum(x.numel() * 4 for x in ik_args) + ik_B * 4 * (ik_env.robot.nj + 7 * ik_env.n_arms) \
+        + sum(t.numel() * t.element_size() for t in ikw._dev.values())
+    ik_t_ops, ik_t_bytes = ik_ops / PEAK_FP32_FLOPS * 1e3, ik_bytes / PEAK_HBM_BYTES * 1e3
+    ik_bound_ms = max(ik_t_ops, ik_t_bytes)
+    ik_bound_by = "operations" if ik_t_ops >= ik_t_bytes else "bytes"
+    ik_smem = ik_kernel.library().arm_ik_smem_bytes(ik_env.n_arms, ik_env.robot.nj)
     aP, NJ, NA = aenv._P, aenv.robot.nj, aenv.robot.na
     a_in = aB * 4 * (aP * (13 + 1 + 1) + 2 * NJ + NA + NJ + 2 * NJ * NJ)
     a_out = aB * (4 * (aP * 13 + 2 * NJ) + aph.NT)
@@ -3129,8 +3261,13 @@ def main() -> None:
           f"in this phase; host {jd['plain_host_ms']:.3f} ms a call); bound {jd['ops']:.4g} FP32 ops -> "
           f"{jd_t_ops:.5f} ms, {jd['bytes']} B -> {jd_t_bytes:.5f} ms ({jd_bound_by}); kernel at "
           f"{jd_bound_ms / jd['device_ms']:.4f} of its bound; {jd['smem_bytes']} B of shared memory a block")
-    print(f"[time] ik B={ik_B}: _ik_prepare (20 DLS iterations) {ik_ms:.3f} ms of the "
-          f"{arm_step['ik'][0]:.3f} ms step")
+    print(f"[time] IK kernel Sawyer B={ik_B}: {ik_ms:.4f} ms a launch as the host enqueues them "
+          f"({ik_host_ms:.4f} ms of host time a call), {ik_dev_ms:.4f} ms queued behind a sleep (the "
+          f"device's own time); one block (4 envs) {ik_floor_ms:.4f} ms (the latency floor); plain version "
+          f"(ik_prepare) {ik_plain_ms:.3f} ms (host {ik_plain_host_ms:.3f} ms a call); bound {ik_ops:.4g} "
+          f"FP32 ops -> {ik_t_ops:.5f} ms, {ik_bytes} B -> {ik_t_bytes:.5f} ms ({ik_bound_by}); kernel at "
+          f"{ik_bound_ms / ik_dev_ms:.4f} of its bound; {ik_smem} B of shared memory a block; the ik step "
+          f"{arm_step['ik'][0]:.3f} ms")
     print(f"[time] arm bound: {a_ops:.4g} FP32 ops -> {a_t_ops:.4f} ms at {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s "
           f"({a_t_ops / scale:.4f} ms scaled to {watts:g} W); {a_bytes} B -> {a_t_bytes:.5f} ms at "
           f"{PEAK_HBM_BYTES / 1e12:g} TB/s; kernel at {arm_bound_ms / arm_kernel_ms:.4f} of its bound")
@@ -3409,6 +3546,24 @@ def main() -> None:
         "smem_bytes": jd["smem_bytes"],
         "launches_by_path": dyn_launches,
         "holds": jd["holds"],
+    }, {
+        "name": "arm_ik",
+        "route": "cuda",
+        "source": "furniture_tpu_torch/physics/csrc/arm_ik.cu",
+        "replaces": None,
+        "launches_on_generator_path": gen_ik_launches,
+        "hold_at_generator_state": ik_hold,
+        "bit_identical_to_plain": {ik_B: ik_same},
+        "ms": ik_ms,
+        "device_ms": ik_dev_ms,
+        "host_ms": ik_host_ms,
+        "latency_floor_ms": ik_floor_ms,
+        "plain_ms": ik_plain_ms,
+        "bound_ms": ik_bound_ms,
+        "bound_by": ik_bound_by,
+        "library_ms": None,
+        "bound_ms_at_power_limit": ik_bound_ms / scale,
+        "smem_bytes": ik_smem,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

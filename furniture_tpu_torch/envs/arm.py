@@ -34,11 +34,13 @@ envs at once (every state field leads with the env dimension B). Semantics:
 Every control step is one launch of the arm kernel through
 ``ArmMegaPhysics.control_step`` (``action_repeat`` launches for ik), after
 one launch of the joint-dynamics kernel (``physics/arm_dynamics.py``) that
-computes its matrices G1, G2; the reset's ten settle rounds go through the
+computes its matrices G1, G2; an ik step first launches the IK kernel
+(``controllers/ik.py::ArmIK``) once, for the IK target's update and the DLS
+solve of every arm; the reset's ten settle rounds go through the
 free-part kernel or, with ``SimConfig(use_pallas="lane")``, through the
 lane-solver backend. Where the JAX package branches per env with
 ``lax.cond``, this module computes both sides and selects on the batch. On
-the card an impedance step synchronises the host once (twice a
+the card an impedance or ik step synchronises the host once (twice a
 ``VecEnv.step`` with its ``done.any()``): in the list index of
 ``transforms.convert_quat`` in ``observe`` (span ``ft.env.observe``: a
 blocking host-to-device copy of the index); ``position_orientation`` and
@@ -59,7 +61,8 @@ import torch
 
 from .. import transforms as T
 from ..config import EnvConfig
-from ..controllers import dls_ik, ik_velocities
+from ..controllers import ik_velocities
+from ..controllers.ik import IK_TYPES, ArmIK
 from ..controllers.osc import (
     joint_impedance_torques,
     joint_velocity_torques,
@@ -172,6 +175,13 @@ class ArmEnv:
         self.physics = ArmMegaPhysics(self.tables, self.robot, cfg.sim, self.device)
         # the joint-dynamics kernel's wrapper (kernel on CUDA, plain on CPU)
         self.dynamics = ArmDynamics(self.robot, cfg.sim.timestep, self.device)
+        # the IK kernel's wrapper (kernel on CUDA, plain on CPU): ik types only
+        self.ik = (
+            ArmIK(self.robot, self.control_type, cfg.move_speed, cfg.rotate_speed,
+                  _MIN_GRIPPER_POS, _MAX_GRIPPER_POS, self.device)
+            if self.control_type in IK_TYPES
+            else None
+        )
         # the reset's settle rounds: the free-part kernel, or the lane backend
         self._settle_physics = (
             make_batched_substeps(self.tables, cfg.sim, self.device)
@@ -223,8 +233,6 @@ class ArmEnv:
         self._grip_joints = {arm: i64(r.gripper_joints[arm]) for arm in r.arms}
         self._ctrl_lo = f32(r.act_ctrlrange[:, 0])
         self._ctrl_hi = f32(r.act_ctrlrange[:, 1])
-        self._min_gripper_pos = f32(_MIN_GRIPPER_POS)
-        self._max_gripper_pos = f32(_MAX_GRIPPER_POS)
         self._init_qpos = f32(r.init_qpos)
         self._identity_quat = f32([1.0, 0.0, 0.0, 0.0])
         self._conn_part = i64(m.conn_part)
@@ -291,56 +299,19 @@ class ArmEnv:
     # -- control-type dispatch -------------------------------------------------
 
     def _ik_prepare(self, state: ArmState, action):
-        """IK-target update + DLS IK solve (once per control step); returns
-        ``(state', q_cmd [B,NJ], grip [B,n_arms])``."""
-        cfg = self.config
-        r = self.robot
-        # per-arm action width: ik = [dpos3, deuler3]; ik_quaternion =
-        # [dpos3, dquat4] (wxyz delta right-multiplied onto the hand quat)
-        aw = 7 if self.control_type == "ik_quaternion" else 6
-        new_tpos, new_hqi = [], []
-        q_cmd = state.qpos
-        fk_out = K.fk(r, state.qpos)
-        for i, arm in enumerate(self.arms):
-            a = action[:, aw * i : aw * i + aw]
-            move = a[:, :3] * cfg.move_speed
-            hand_pos, hand_quat = K.eef_pose(r, fk_out, arm)
-            dpos = torch.minimum(
-                torch.maximum(move, self._min_gripper_pos - hand_pos),
-                self._max_gripper_pos - hand_pos,
-            )
-            if self.control_type == "ik_quaternion":
-                dq_in = T.quat_normalize(a[:, 3:7])
-                # keep w >= 0 (shortest arc)
-                dq_in = torch.where(dq_in[:, 0:1] < 0, -dq_in, dq_in)
-                hqi = T.quat_normalize(T.quat_mul(hand_quat, dq_in))
-            else:
-                # hand-frame euler deltas, right-multiplied onto the
-                # accumulated target, with the 0.3 sensitivity low-pass
-                hqi = T.quat_mul(
-                    state.hand_quat_init[:, i],
-                    T.euler_to_quat(0.3 * a[:, 3:6] * cfg.rotate_speed),
-                )
-                hqi = T.quat_normalize(hqi)
-            # anti-windup: the orientation target stays within 45° of the hand
-            dq = T.quat_mul(hqi, T.quat_inv(hand_quat))
-            dq = torch.where(dq[:, 0:1] < 0, -dq, dq)
-            ang = 2.0 * torch.arccos(torch.clamp(dq[:, 0], -1.0, 1.0))
-            frac = torch.clamp((math.pi / 4) / torch.clamp(ang, min=1e-6), max=1.0)
-            hqi = T.quat_slerp(hand_quat, hqi, frac)
-            # the target moves by 0.3 × dpos and stays within 15 cm of the hand
-            tpos = state.ik_target_pos[:, i] + 0.3 * dpos
-            err = tpos - hand_pos
-            err_n = torch.linalg.norm(err, dim=-1, keepdim=True)
-            tpos = hand_pos + err * torch.clamp(0.15 / torch.clamp(err_n, min=1e-6), max=1.0)
-            q_cmd = dls_ik(r, arm, q_cmd, tpos, hqi)
-            new_tpos.append(tpos)
-            new_hqi.append(hqi)
-        state = state._replace(
-            ik_target_pos=torch.stack(new_tpos, 1), hand_quat_init=torch.stack(new_hqi, 1)
+        """IK-target update + DLS IK solve (once per control step), through
+        the IK kernel's wrapper; returns ``(state', q_cmd [B,NJ], grip
+        [B,n_arms])``."""
+        tpos, hqi, q_cmd = self.ik.prepare(
+            state.qpos.contiguous(),
+            state.ik_target_pos.contiguous(),
+            state.hand_quat_init.contiguous(),
+            action.contiguous(),
         )
+        state = state._replace(ik_target_pos=tpos, hand_quat_init=hqi)
         # gripper scalars follow the per-arm blocks
-        grip = action[:, aw * self.n_arms : aw * self.n_arms + self.n_arms]
+        aw = self.ik.width * self.n_arms
+        grip = action[:, aw : aw + self.n_arms]
         return state, q_cmd, grip
 
     def _ik_ctrl(self, qpos, q_cmd, grip):

@@ -29,7 +29,9 @@
 // memory once a block; each warp keeps its env's poses and matrices in
 // shared memory beside them. The chain is walked level by level, parent
 // first, lanes over the bodies of a level, with the plain version's
-// composition (parent pose, then the joint's motion about its anchor).
+// composition (parent pose, then the joint's motion about its anchor; the
+// one-body step and the vector helpers are arm_chain.cuh's, shared with the
+// IK kernel).
 // Lanes then take the bodies (COM and inertia in the world frame) and the
 // joints (axis and anchor in the world frame); then the entries of M's upper
 // triangle, each summing over the bodies that both of its joints move, with
@@ -43,12 +45,15 @@
 
 #include <cuda_runtime.h>
 
+#include "arm_chain.cuh"
+
 namespace {
+
+using namespace arm_chain;
 
 constexpr int MAX_NB = 64;   // bodies
 constexpr int MAX_NJ = 32;   // joints: a lane per column of A^-1, a bit each in the ancestor masks
 constexpr int ENVS = 4;      // envs (warps) a block
-constexpr int HINGE = 0;     // joint type (robots/chain.py)
 
 // table widths
 constexpr int BODY_F = 23;   // local pos (3), local quat (4), unit joint axis (3), COM (3),
@@ -83,47 +88,6 @@ struct Args {
   int B, NB, NJ, NLEV;
   float dt;
 };
-
-__device__ __forceinline__ void cross3(const float* a, const float* b, float* o) {
-  o[0] = a[1] * b[2] - a[2] * b[1];
-  o[1] = a[2] * b[0] - a[0] * b[2];
-  o[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
-
-// R v = v + 2 (w (u x v) + u x (u x v)), q = (w, u) (transforms.quat_rotate)
-__device__ __forceinline__ void qrot(const float* q, const float* v, float* o) {
-  const float u[3] = {q[1], q[2], q[3]};
-  float uv[3], uuv[3];
-  cross3(u, v, uv);
-  cross3(u, uv, uuv);
-  for (int k = 0; k < 3; ++k) o[k] = v[k] + 2.f * (q[0] * uv[k] + uuv[k]);
-}
-
-// Hamilton product a b in wxyz (transforms.quat_mul)
-__device__ __forceinline__ void qmul(const float* a, const float* b, float* o) {
-  o[0] = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
-  o[1] = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
-  o[2] = a[0] * b[2] - a[1] * b[3] + a[2] * b[0] + a[3] * b[1];
-  o[3] = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
-}
-
-// The Jacobian column of joint j at world point p: axis x (p - anchor) for
-// a hinge, the axis for a slide.
-__device__ __forceinline__ void jac_col(const float* axis, const float* anchor, bool hinge,
-                                        const float* p, float* o) {
-  if (hinge) {
-    const float d[3] = {p[0] - anchor[0], p[1] - anchor[1], p[2] - anchor[2]};
-    cross3(axis, d, o);
-  } else {
-    o[0] = axis[0];
-    o[1] = axis[1];
-    o[2] = axis[2];
-  }
-}
 
 __global__ void __launch_bounds__(32 * ENVS) arm_dyn_matrices_kernel(Args a) {
   extern __shared__ float smem[];
@@ -165,37 +129,10 @@ __global__ void __launch_bounds__(32 * ENVS) arm_dyn_matrices_kernel(Args a) {
       if (ib[3] != d) continue;
       const float* fb = bf + i * BODY_F;
       const int par = ib[0];
-      float pp[3], pq[4];
-      if (par < 0) {
-        for (int k = 0; k < 3; ++k) pp[k] = fb[k];
-        for (int k = 0; k < 4; ++k) pq[k] = fb[3 + k];
-      } else {
-        float r[3];
-        qrot(bquat + 4 * par, fb, r);
-        for (int k = 0; k < 3; ++k) pp[k] = bpos[3 * par + k] + r[k];
-        qmul(bquat + 4 * par, fb + 3, pq);
-      }
-      const int j = ib[1];
+      const int j = ib[1], pb = par < 0 ? 0 : par, jb = j < 0 ? 0 : j;
       float wp[3], wq[4];
-      if (j < 0) {
-        for (int k = 0; k < 3; ++k) wp[k] = pp[k];
-        for (int k = 0; k < 4; ++k) wq[k] = pq[k];
-      } else if (ib[2] == HINGE) {
-        const float half = q[j] * 0.5f;
-        const float s = sinf(half);
-        const float qr[4] = {cosf(half), s * fb[7], s * fb[8], s * fb[9]};
-        qmul(pq, qr, wq);
-        const float* jp = jf + j * JNT_F + 3;
-        float r1[3], r2[3];
-        qrot(pq, jp, r1);
-        qrot(wq, jp, r2);
-        for (int k = 0; k < 3; ++k) wp[k] = (pp[k] + r1[k]) - r2[k];
-      } else {
-        float r[3];
-        qrot(pq, jf + j * JNT_F, r);
-        for (int k = 0; k < 3; ++k) wp[k] = pp[k] + r[k] * q[j];
-        for (int k = 0; k < 4; ++k) wq[k] = pq[k];
-      }
+      chain_body(fb, par < 0, bpos + 3 * pb, bquat + 4 * pb, j < 0 ? -1 : ib[2], jf + jb * JNT_F,
+                 q[jb], nullptr, wp, wq);
       for (int k = 0; k < 3; ++k) bpos[3 * i + k] = wp[k];
       for (int k = 0; k < 4; ++k) bquat[4 * i + k] = wq[k];
     }
