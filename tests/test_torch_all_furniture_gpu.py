@@ -5,20 +5,26 @@ mirror of ``tests/test_all_furniture_runtime.py``: every model of the
 registry as a live ``CursorEnv`` (reset, then 3 steps of the JAX test's
 action), and a subset of six through the Sawyer impedance env, at the
 JAX test's coarse ``SimConfig(timestep=0.01, solver_iters=6)``, with its
-checks on every env of a batch of 4: finite state, unit quaternions, parts
+checks on every env of a batch of 16: finite state, unit quaternions, parts
 above the floor, finite reward and observations. The padded lane tables,
 conn-site tables, placement sampling and settle run here through the
-kernels. The file imports neither JAX nor the JAX package:
+kernels: 10 launches of kernel 1 a reset, 2 a cursor step, one of kernel 2
+an impedance step. Then kernel 1 against its plain version after 5
+substeps from the settled reset and, for the cursor, from the stepped
+state (``hold_free`` with ``chaotic``: a model's reset may be chaotic in
+most of its envs), and kernel 2 at each arm step's recorded inputs
+(``assert_held``). The file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -m gpu tests/test_torch_all_furniture_gpu.py
 """
 
 import pytest
 import torch
+from torch_gpu_holds import assert_held, card, hold_free, recording
 
 from furniture_tpu_torch.models import furniture_names
 
-B = 4
+B = 16
 _COARSE = dict(timestep=0.01, solver_iters=6)
 _ARM_SUBSET = [
     "table_lack_0825",
@@ -31,8 +37,7 @@ _ARM_SUBSET = [
 
 
 def _config(name, **kw):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU form here")
+    card()
     from furniture_tpu_torch.config import EnvConfig, SimConfig
 
     return EnvConfig(furniture_name=name, sim=SimConfig(**_COARSE), **kw)
@@ -61,17 +66,22 @@ def test_cursor_reset_and_step_every_furniture(name):
     from furniture_tpu_torch.envs.cursor import CursorEnv
 
     env = CursorEnv(_config(name), device="cuda")
-    state = env.reset_batch(B, _generator(3))
+    state = reset = env.reset_batch(B, _generator(3))
     _assert_live_state(env, state, name)
     action = torch.zeros((B, env.dof), device="cuda")
     action[:, 0] = 0.5
     action[:, 2] = 0.2
     for _ in range(3):
         state, obs, rew, done, info = env.step_batch(state, action)
+    assert env.physics.launches == 10 + 2 * 3
     _assert_live_state(env, state, name)
     assert torch.isfinite(rew).all()
     for k, v in obs.items():
         assert torch.isfinite(v.float()).all(), f"{name}: obs[{k}]"
+    ones = torch.ones((B, env._P), device="cuda")
+    for st in (reset, state):
+        h = hold_free(env.physics, st.parts, st.group, ones, 5, 1e-4, chaotic=True)
+        assert h["problem"] is None, h
 
 
 @pytest.mark.gpu
@@ -83,10 +93,17 @@ def test_arm_reset_and_step_subset(name):
     state = env.reset_batch(B, _generator(4))
     _assert_live_state(env, state, name)
     assert torch.isfinite(state.qpos).all()
+    reset = state
     action = torch.zeros((B, env.dof), device="cuda")
     action[:, -2] = -1.0
-    for _ in range(3):
-        state, obs, rew, done, info = env.step_batch(state, action)
+    with recording(env, keep=3) as calls:
+        for _ in range(3):
+            state, obs, rew, done, info = env.step_batch(state, action)
+    assert (env._settle_physics.launches, env.physics.launches, len(calls)) == (10, 3, 3)
+    ones = torch.ones((B, env._P), device="cuda")
+    h = hold_free(env._settle_physics, reset.parts, reset.group, ones, 5, 1e-4, chaotic=True)
+    assert h["problem"] is None, h
+    assert_held(env.physics, calls, name)
     _assert_live_state(env, state, name)
     assert torch.isfinite(state.qpos).all(), f"{name}: qpos"
     assert torch.isfinite(rew).all()

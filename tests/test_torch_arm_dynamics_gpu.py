@@ -6,7 +6,8 @@ JAX package, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_arm_dynamics_gpu.py
 
-For each arm, at B = 512 with joint positions drawn by numpy within the
+For each arm, in both robot variants (velocity servos, and motors: another
+D), at B = 512 with joint positions drawn by numpy within the
 joint ranges (unlimited ones within +-2): the kernel's G1 and G2 within
 1e-4 of their largest entry of the truth (``K.joint_dyn_matrices`` in
 float64 on the CPU; 1e-4 is what ``test_torch_arm_kinematics.py`` holds
@@ -16,31 +17,23 @@ one ik step ``action_repeat`` (3); the dynamics, and the whole control
 step, make no host synchronisation.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
+from torch_gpu_holds import card, float64_twin
 
-from furniture_tpu_torch.config import EnvConfig
+from furniture_tpu_torch.config import EnvConfig, SimConfig
 from furniture_tpu_torch.envs.arm import ArmEnv
-from furniture_tpu_torch.robots import AGENT_SPECS
+from furniture_tpu_torch.physics.arm_dynamics import ArmDynamics
+from furniture_tpu_torch.robots import AGENT_SPECS, compile_robot
 from furniture_tpu_torch.robots import kinematics as K
 
 B = 512
 
 
 def float64_truth(robot, qpos, dt):
-    """``K.joint_dyn_matrices`` in float64 on the CPU: a twin of ``robot``
-    gets float64 copies of the cached constant tables."""
-    twin = dataclasses.replace(robot)
-    t = K.robot_tables(twin, "cpu")
-    for k, v in list(t.items()):
-        if isinstance(v, torch.Tensor) and v.is_floating_point():
-            t[k] = v.double()
-        elif isinstance(v, dict):
-            t[k] = {a: x.double() for a, x in v.items()}
-    return K.joint_dyn_matrices(twin, qpos.cpu().double(), dt)
+    """``K.joint_dyn_matrices`` in float64 on the CPU."""
+    return K.joint_dyn_matrices(float64_twin(robot), qpos.cpu().double(), dt)
 
 
 def gap(x, truth) -> float:
@@ -49,13 +42,12 @@ def gap(x, truth) -> float:
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("use_torque", [False, True])
 @pytest.mark.parametrize("agent", list(AGENT_SPECS))
-def test_arm_dynamics_kernel(agent):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    env = ArmEnv(EnvConfig(agent_type=agent, control_type="impedance"), device="cuda")
-    r, dt, dyn = env.robot, env.config.sim.timestep, env.dynamics
+def test_arm_dynamics_kernel(agent, use_torque):
+    card()
+    r, dt = compile_robot(agent, use_torque=use_torque), SimConfig().timestep
+    dyn = ArmDynamics(r, dt, "cuda")
     rng = np.random.default_rng(0)
     lo = np.maximum(r.jnt_range[:, 0], -2.0)
     hi = np.minimum(r.jnt_range[:, 1], 2.0)
@@ -84,8 +76,7 @@ def test_arm_step_launches_dynamics_once_a_control_step(agent):
     """One impedance ``step_batch`` launches the kernel once, one ik step
     ``action_repeat`` times; an impedance control step (dynamics and arm
     kernel) runs under ``set_sync_debug_mode("error")``."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    card()
     gen = torch.Generator(device="cuda")
     for control_type, b in (("impedance", B), ("ik", 16)):
         env = ArmEnv(EnvConfig(agent_type=agent, control_type=control_type), device="cuda")

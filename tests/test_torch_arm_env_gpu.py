@@ -16,15 +16,9 @@ import math
 import numpy as np
 import pytest
 import torch
+from torch_gpu_holds import card
 
 FAST_SIM = dict(control_freq=20, solver_iters=12)
-
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the arm kernel has no CPU form")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
 
 
 def _env(agent="Sawyer", control_type="ik"):
@@ -33,7 +27,7 @@ def _env(agent="Sawyer", control_type="ik"):
 
     return ArmEnv(EnvConfig(agent_type=agent, control_type=control_type,
                             furniture_name="table_lack_0825", sim=SimConfig(**FAST_SIM)),
-                  device=_card())
+                  device=card())
 
 
 def _reset(env, seed):

@@ -24,11 +24,10 @@ synchronisation; one ik step adds one launch of the IK kernel and
 ``action_repeat`` of the arm kernel.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
+from torch_gpu_holds import card, float64_twin, p90_gap
 
 from furniture_tpu_torch import transforms as T
 from furniture_tpu_torch.config import EnvConfig
@@ -39,18 +38,6 @@ from furniture_tpu_torch.robots import kinematics as K
 
 B = 256
 PLAIN_FACTOR = 4.0
-
-
-def float64_twin(robot):
-    """A twin of ``robot`` whose cached constant tables are float64."""
-    twin = dataclasses.replace(robot)
-    t = K.robot_tables(twin, "cpu")
-    for k, v in list(t.items()):
-        if isinstance(v, torch.Tensor) and v.is_floating_point():
-            t[k] = v.double()
-        elif isinstance(v, dict):
-            t[k] = {a: x.double() for a, x in v.items()}
-    return twin
 
 
 def ik_inputs(r, width: int, n: int, seed: int):
@@ -74,19 +61,11 @@ def ik_inputs(r, width: int, n: int, seed: int):
     return q, tpos, hqi, torch.as_tensor(act)
 
 
-def p90_gap(x, truth) -> float:
-    """The rows' 90th percentile of their largest gap to the truth."""
-    d = (x.cpu().double() - truth).abs().reshape(x.shape[0], -1).amax(1)
-    return torch.quantile(d, 0.9).item()
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("control_type", ["ik", "ik_quaternion"])
 @pytest.mark.parametrize("agent", list(AGENT_SPECS))
 def test_arm_ik_kernel(agent, control_type, monkeypatch):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    card(monkeypatch)
     env = ArmEnv(EnvConfig(agent_type=agent, control_type=control_type), device="cuda")
     r, ik = env.robot, env.ik
     cpu_ins = ik_inputs(r, ik.width, B, seed=len(agent) + ik.width)
@@ -120,8 +99,7 @@ def test_arm_ik_step_launches_once_and_never_syncs(agent, control_type):
     """One ik ``step_batch`` launches the IK kernel once and the arm kernel
     ``action_repeat`` times; its control span runs under
     ``set_sync_debug_mode("error")``."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    card()
     env = ArmEnv(EnvConfig(agent_type=agent, control_type=control_type), device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

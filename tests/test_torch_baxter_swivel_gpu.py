@@ -12,6 +12,7 @@ widths. The file imports neither JAX nor the JAX package:
 import numpy as np
 import pytest
 import torch
+from torch_gpu_holds import card
 
 import furniture_tpu_torch as ft
 from furniture_tpu_torch import transforms as T
@@ -23,12 +24,6 @@ from furniture_tpu_torch.robots import kinematics as K
 KW = dict(agent_type="Baxter", control_type="impedance", furniture_name="swivel_chair_0700")
 
 
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 @pytest.mark.gpu
 def test_arm_kernel_takes_global_scratch_and_matches_plain():
     """B = 32 (TF32 off), as ``test_arm_kernel_matches_plain``: from a reset
@@ -37,7 +32,7 @@ def test_arm_kernel_takes_global_scratch_and_matches_plain():
     touch flags equal and set; from the plain reset, without contact, 5
     substeps within 5e-4. Every launch takes the global-scratch route, and a
     repeated launch gives the same bits."""
-    _card()
+    card()
     dev = "cuda"
     env = ArmEnv(EnvConfig(**KW), device=dev)
     ph = env.physics
@@ -91,7 +86,7 @@ def test_vec_env_b512_steps_finite():
     ``SimConfig``): a reset and 3 closed-loop steps on random actions stay
     finite, each step one launch of kernel 4 and one of kernel 2, every
     kernel-2 launch on the global-scratch route."""
-    _card()
+    card()
     B = 512
     vec = ft.make_vec_env("IKEABaxter-v0", B, seed=2147483659, device="cuda", sim=SimConfig(),
                           control_type="impedance", furniture_name="swivel_chair_0700")

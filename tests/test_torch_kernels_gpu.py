@@ -7,8 +7,10 @@ JAX package, so it also runs where only the port is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
+from torch_gpu_holds import arm_args, card, hold_arm, hold_lane, kernel1_gap
 
 from furniture_tpu_torch.config import EnvConfig, SimConfig
 from furniture_tpu_torch.envs.arm import ArmEnv
@@ -23,33 +25,82 @@ from furniture_tpu_torch.robots import kinematics as K
 def test_free_part_kernel_matches_plain(name):
     """n = 5 substeps at B = 32 from a settled reset, free and with parts 0
     and 1 welded plus part 2 gravity-compensated, within 1e-4 (TF32 off).
-    chair_balser_0115 (K = 4153) keeps its lane working set in the global
-    scratch buffer, table_lack in shared memory."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    env = CursorEnv(EnvConfig(furniture_name=name), device="cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    B, P = 32, env._P
-    state = env.reset_batch(B, gen)
-    phys = env.physics
+    Then at B = 256, free parts with velocities within 1e-4 at n = 5 and
+    1e-3 at n = 50; the welded pair at n = 50 within 1e-3 or 10x the plain
+    version's own spread under 1e-7 of position noise, the larger (two parts
+    welded where they lie apart make one body whose 50-substep motion is
+    chaotic). chair_balser_0115 (K = 4153) keeps its lane working set in the
+    global scratch buffer, table_lack in shared memory."""
+    dev = card()
+    env = CursorEnv(EnvConfig(furniture_name=name), device=dev)
+    gen = torch.Generator(device=dev)
+    P, phys = env._P, env.physics
+
+    def staged(B):
+        """A settled reset of B envs, the free and the welded groups, and
+        gravity off for part 2."""
+        gen.manual_seed(0)
+        free = torch.arange(P, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+        welded = free.clone()
+        welded[:, 1] = 0
+        gscale = torch.ones((B, P), device=dev)
+        gscale[:, 2] = 0.0
+        return env.reset_batch(B, gen), free, welded, gscale
+
+    state, free, welded, gscale = staged(32)
     launches = phys.launches
-    free = torch.arange(P, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
-    welded = free.clone()
-    welded[:, 1] = 0
-    gscale = torch.ones((B, P), device="cuda")
-    gscale[:, 2] = 0.0
     for group in (free, welded):
-        ref = phys.plain_substeps(state.parts, group, gscale, 5)
-        out = phys.kernel_substeps(state.parts, group, gscale, 5)
-        again = phys.kernel_substeps(state.parts, group, gscale, 5)
-        torch.cuda.synchronize()
-        for f, a, b, c in zip(ref._fields, ref, out, again):
-            err = (a - b).abs().max().item()
-            assert err < 1e-4, (f, err)
-            assert torch.equal(b, c), f      # the sums are taken in a fixed order
+        assert kernel1_gap(phys, state.parts, group, gscale, 5) < 1e-4
     assert phys.launches == launches + 4
+    state, free, welded, gscale = staged(256)
+    parts = state.parts
+    moving = parts._replace(lin_vel=parts.lin_vel + 0.05, ang_vel=parts.ang_vel + 0.1)
+    ones = torch.ones_like(gscale)
+    assert kernel1_gap(phys, moving, free, ones, 5) < 1e-4
+    assert kernel1_gap(phys, moving, free, ones, 50) < 1e-3
+    assert kernel1_gap(phys, parts, welded, gscale, 5) < 1e-4
+    gen.manual_seed(7)
+    eps = (torch.rand(parts.pos.shape, generator=gen, device=dev) - 0.5) * 2e-7
+    ref = phys.plain_substeps(parts, welded, gscale, 50)
+    ref2 = phys.plain_substeps(parts._replace(pos=parts.pos + eps), welded, gscale, 50)
+    spread = max((a - b).abs().max().item() for a, b in zip(ref, ref2))
+    assert kernel1_gap(phys, parts, welded, gscale, 50) <= max(1e-3, 10 * spread)
+
+
+@pytest.mark.gpu
+def test_free_part_kernel_sat_edge_lanes():
+    """Leg 1 laid across leg 0 (edge on edge, no corner inside either box),
+    settled into contact by the plain version, so that SAT edge lanes carry
+    the contact: 1 and 5 substeps within 1e-4 (longer runs of this point
+    contact are chaotic)."""
+    from furniture_tpu_torch import transforms as T
+    from furniture_tpu_torch.physics.collide import edge_contacts, pair_contacts, torch_tables
+
+    dev = card()
+    env = CursorEnv(EnvConfig(), device=dev)
+    B, P = 64, env._P
+    pos = torch.tensor([[2.0 + i, 2.0 + i, 0.02] for i in range(P)], device=dev)
+    pos[0] = torch.tensor([0.0, 0.0, 0.017], device=dev)
+    pos[1] = torch.tensor([0.0, 0.0, 0.055], device=dev)
+    quat = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).repeat(P, 1)
+    y90 = T.euler_to_quat(torch.tensor([0.0, 90.0, 0.0], device=dev))
+    quat[0] = y90
+    quat[1] = T.quat_mul(T.euler_to_quat(torch.tensor([0.0, 0.0, 90.0], device=dev)), y90)
+    pos = pos[None].repeat(B, 1, 1)
+    pos[:, 1, 0] += torch.linspace(-0.01, 0.01, B, device=dev)
+    group = torch.arange(P, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    gscale = torch.ones((B, P), device=dev)
+    start = env.physics.plain_substeps(
+        PartState(pos, quat[None].repeat(B, 1, 1), torch.zeros_like(pos), torch.zeros_like(pos)),
+        group, gscale, 50,
+    )
+    tt = torch_tables(env.tables, dev)
+    slop, NP = env.config.sim.contact_slop, env.physics.Ke
+    pm = pair_contacts(tt, start.pos, start.quat, group, slop).mask
+    hit = pm[:, : NP * 8].reshape(-1, NP, 8).any(-1) | pm[:, NP * 8 :].reshape(-1, NP, 8).any(-1)
+    assert int(edge_contacts(tt, start.pos, start.quat, group, slop, hit).mask.sum()) > 0
+    for n in (1, 5):
+        assert kernel1_gap(env.physics, start, group, gscale, n) < 1e-4, n
 
 
 @pytest.mark.gpu
@@ -57,11 +108,10 @@ def test_free_part_kernel_welded_by_connect():
     """table_lack with two recipe steps preassembled (a group of three parts
     beside two free ones), parts dropped onto the floor and pushed: n = 5
     within 1e-4 and n = 50 within 1e-3 of the plain version (TF32 off), two
-    launches bit-identical, and the phase-clock build of the same source
+    launches bit-identical, also from the reset with a free leg
+    gravity-compensated; and the phase-clock build of the same source
     gives the same result and a clock count for every phase."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    card()
     env = CursorEnv(EnvConfig(preassembled=(0, 1)), device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -81,6 +131,11 @@ def test_free_part_kernel_welded_by_connect():
         for f, a, b, c in zip(ref._fields, ref, out, again):
             assert (a - b).abs().max().item() < tol, (f, n)
             assert torch.equal(b, c), (f, n)
+    # a free leg gravity-compensated, from the reset itself
+    comp = gscale.clone()
+    comp[:, 3] = 0.0
+    assert kernel1_gap(phys, state.parts, state.group, comp, 5) < 1e-4
+    assert kernel1_gap(phys, state.parts, state.group, comp, 50) < 1e-3
     launches = phys.launches
     clocks = phys.phase_clocks(parts, state.group, gscale, 5)
     torch.cuda.synchronize()
@@ -99,13 +154,10 @@ def test_arm_kernel_matches_plain(agent):
     """The arm kernel against its plain version at B = 32 (TF32 off): from a
     reset with part 0 on the first arm's left fingertip and the grippers
     closing, one substep within 5e-4 with touch flags equal and set (longer
-    runs of that stiff contact are ill-conditioned in a few envs; the smoke
-    script holds them by their spread); and from the plain reset, without
-    contact, 5 substeps within 5e-4."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = "cuda"
+    runs of that stiff contact are ill-conditioned in a few envs:
+    ``test_arm_kernel_pinched`` holds them by their spread); and from the
+    plain reset, without contact, 5 substeps within 5e-4."""
+    dev = card()
     env = ArmEnv(EnvConfig(agent_type=agent, control_type="impedance"), device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -125,12 +177,7 @@ def test_arm_kernel_matches_plain(agent):
     ph = env.physics
     launches = ph.launches
     for state, n, want_touch in ((touching, 1, True), (free, 5, False)):
-        G1, G2 = K.joint_dyn_matrices(env.robot, state.qpos, env.config.sim.timestep)
-        args = (
-            PartState(*(t.contiguous() for t in state.parts)), state.group,
-            torch.ones((B, env._P), device=dev), state.qpos, state.qvel, ctrl,
-            torch.zeros((B, env.robot.nj), device=dev), G1.contiguous(), G2.contiguous(), n,
-        )
+        args = arm_args(env, state, ctrl) + (n,)
         ref = ph.plain_control_step(*args)
         out = ph.kernel_control_step(*args)
         again = ph.kernel_control_step(*args)
@@ -152,10 +199,7 @@ def test_arm_kernel_welded_group():
     closing: one substep within 5e-4 of the plain version in every env (TF32
     off), touch flags equal and set, two launches bit-identical; the
     phase-clock build counts every phase."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = "cuda"
+    dev = card()
     env = ArmEnv(EnvConfig(agent_type="Sawyer", control_type="impedance", preassembled=(0, 1)),
                  device=dev)
     gen = torch.Generator(device=dev)
@@ -173,12 +217,7 @@ def test_arm_kernel_welded_group():
     act[:, -1 - env.n_arms : -1] = -1.0
     ctrl = env._direct_ctrl(act[:, :-1])
     ph = env.physics
-    G1, G2 = K.joint_dyn_matrices(env.robot, st.qpos, env.config.sim.timestep)
-    args = (
-        PartState(*(t.contiguous() for t in st.parts)), st.group,
-        torch.ones((B, env._P), device=dev), st.qpos, st.qvel, ctrl,
-        torch.zeros((B, env.robot.nj), device=dev), G1.contiguous(), G2.contiguous(), 1,
-    )
+    args = arm_args(env, st, ctrl) + (1,)
     ref = ph.plain_control_step(*args)
     out = ph.kernel_control_step(*args)
     again = ph.kernel_control_step(*args)
@@ -197,20 +236,79 @@ def test_arm_kernel_welded_group():
     assert ph.resident_blocks() >= 1
 
 
+# (agent, where part 0 lies, SimConfig fields, shared-memory limit, checks (n, tol, pinched))
+PINCHED = {
+    "sawyer-grip": ("Sawyer", "grip", {}, None, ((1, 5e-4, False), (5, 5e-4, True), (50, 1e-3, True))),
+    "sawyer-grip-scratch": ("Sawyer", "grip", {}, 64 * 1024, ((5, 5e-4, True),)),
+    "sawyer-free": ("Sawyer", "free", {}, None, ((50, 1e-3, False),)),
+    "sawyer-uncoupled": ("Sawyer", "grip", {"robot_coupling": False}, None, ((5, 5e-4, True),)),
+    "sawyer-held-clamp": ("Sawyer", "grip", {"held_vel_clamp": 0.05}, None, ((5, 5e-4, True),)),
+    "baxter-tip": ("Baxter", "tip", {}, None, ((1, 5e-4, False), (5, 5e-4, True))),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(PINCHED))
+def test_arm_kernel_pinched(case):
+    """The arm kernel against its plain version at B = 256 (TF32 off) from an
+    impedance reset with part 0 at the first arm's grip site ("grip"), in its
+    left fingertip ("tip") or where it settled ("free"), under a random
+    action with the grippers closing; also with ``robot_coupling=False``,
+    with a held-velocity clamp, and on the global-scratch route forced by a
+    lowered shared-memory limit. One substep is held to its bound in every
+    env; over more substeps a part pinched between kinematic pads is
+    ill-conditioned in a few envs (a lane on a threshold flips), so those
+    are held by ``hold_arm``'s rule for a pinched part. Touch flags equal,
+    and set where the part is gripped."""
+    dev = card()
+    agent, where, sim, smem_limit, checks = PINCHED[case]
+    env = ArmEnv(EnvConfig(agent_type=agent, control_type="impedance", sim=SimConfig(**sim)), device=dev)
+    assert env.physics.K == {"Sawyer": 1260, "Baxter": 1610}[agent]
+    B = 256
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    st = env.reset_batch(B, gen)
+    r, arm = env.robot, env.arms[0]
+    fk_out = K.fk(r, st.qpos)
+    if where != "free":
+        if where == "grip":
+            target, _ = K.site_world(r, fk_out, arm)
+        else:
+            # off the fingertip's center: a sample point exactly on a box
+            # center ties the least-penetrated axis
+            target = K.geom_world(r, fk_out)[0][:, int(r.finger_geoms_l[arm][-1])]
+            target = target + torch.tensor([0.004, 0.003, 0.002], device=dev)
+        pos = st.parts.pos.clone()
+        pos[:, 0] = target
+        st = st._replace(parts=st.parts._replace(pos=pos))
+    gen.manual_seed(1)
+    act = torch.rand((B, env.dof), generator=gen, device=dev) * 2 - 1
+    act[:, -1 - env.n_arms : -1] = -1.0        # close every gripper hard
+    ph = env.physics
+    if smem_limit is not None:
+        ph.smem_limit = smem_limit
+        assert not ph.lane_buffer()[2], "the lowered limit did not select the global-scratch route"
+    launches, scratch = ph.launches, ph.scratch_launches
+    args = arm_args(env, st, env._direct_ctrl(act[:, :-1]))
+    for n, tol, pinched in checks:
+        h = hold_arm(ph, args, n, tol, pinched)
+        assert h["problem"] is None, h
+        assert where == "free" or h["n_touch"] > 0, h
+    if smem_limit is not None:
+        assert ph.scratch_launches - scratch == ph.launches - launches > 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["table_lack_0825", "chair_balser_0115"])
 def test_lane_solver_kernel_matches_plain(name):
     """The lane solver's kernel against its plain version at B = 32 (TF32
     off) on the contacts of a reset dropped onto the floor with the parts
     pushed along and into it: 12 and 24 sweeps within 1e-4 on both
-    velocities, two launches bit-identical, one launch counted per call.
-    table_lack (K = 210) keeps a lane per thread in registers,
+    velocities, two launches bit-identical, one launch counted per call, and
+    within 2e-3 / 5e-3 of the cold ``engine._solve_contacts``. table_lack (K = 210) keeps a lane per thread in registers,
     chair_balser_0115 (K = 4153) keeps its prepared lanes in a global
     scratch buffer."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = "cuda"
+    dev = card()
     env = CursorEnv(EnvConfig(furniture_name=name, sim=SimConfig(use_pallas="lane")), device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -236,6 +334,7 @@ def test_lane_solver_kernel_matches_plain(name):
         assert (lv - rl).abs().max().item() < 1e-4
         assert (av - ra).abs().max().item() < 1e-4
         assert (lv - a[5]).abs().max().item() > 1e-3   # the solve did something
+    hold_lane(tables, args)       # also against the cold engine._solve_contacts
 
 
 def _lane_args(dev, B=32, stack=True, **cfg):
@@ -264,11 +363,9 @@ def test_lane_solver_kernel_cases():
     the table top through both routes, with a non-zero ``vel_b`` on
     every lane (kinematic lanes), with every lane masked (the velocities
     come back exactly), and table_lack welded by connects
-    (``preassembled=(0, 1)``)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = "cuda"
+    (``preassembled=(0, 1)``); each also within 2e-3 / 5e-3 of the cold
+    ``engine._solve_contacts`` (``hold_lane``)."""
+    dev = card()
     _, _, args = _lane_args(dev)
     c = args[0]
     assert bool((c.mask & (c.part_b >= 0)).any())
@@ -281,20 +378,7 @@ def test_lane_solver_kernel_cases():
     cases += [((c._replace(vel_b=vel_b),) + args[1:], None), (args_w, None)]
     masked = (c._replace(mask=torch.zeros_like(c.mask)),) + args[1:]
     for case, route in cases + [(masked, None)]:
-        tables = lane_solver.LaneTables.of(case[0], case[1].shape[1], route)
-        for iters in (12, 24):
-            a = case[:8] + (iters,) + case[9:]
-            lv, av, _ = lane_solver.launch(tables, *a)
-            lv2, av2, _ = lane_solver.launch(tables, *a)
-            rl, ra = lane_solver.plain_solve_contacts_lane(*a)
-            torch.cuda.synchronize()
-            assert torch.equal(lv, lv2) and torch.equal(av, av2)
-            assert (lv - rl).abs().max().item() < 1e-4, (route, iters)
-            assert (av - ra).abs().max().item() < 1e-4, (route, iters)
-            if case is masked:
-                assert torch.equal(lv, a[5]) and torch.equal(av, a[6])
-            else:
-                assert (lv - a[5]).abs().max().item() > 1e-3
+        hold_lane(lane_solver.LaneTables.of(case[0], case[1].shape[1], route), case, exact=case is masked)
 
 
 @pytest.mark.gpu
@@ -304,8 +388,7 @@ def test_lane_solver_one_launch_no_prep_no_sync(monkeypatch):
     ``engine.lane_prep``, dispatches no PyTorch operation but the two
     output allocations, and neither it, nor the lane substeps around it,
     nor a whole ``step_batch`` of the lane path synchronises the host."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    card()
     from torch.utils._python_dispatch import TorchDispatchMode
 
     dev = "cuda"
@@ -352,3 +435,102 @@ def test_lane_solver_one_launch_no_prep_no_sync(monkeypatch):
     torch.cuda.synchronize()
     assert lane_solver.launches == before + 1 + 3 + env.config.n_substeps + 1
     assert len(ops.ops) == 2 and all(op.startswith("aten.empty") for op in ops.ops), ops.ops
+
+
+# (env id, control type or None, use_pallas, batch, steps stepped again on the CPU)
+MAIN_PATHS = {
+    "cursor-b4096": ("IKEACursor-v0", None, "auto", 4096, 3),
+    "cursor-lane-b4096": ("IKEACursor-v0", None, "lane", 4096, 2),
+    "sawyer-impedance-b512": ("IKEASawyer-v0", "impedance", "auto", 512, 3),
+    "sawyer-ik-b256": ("IKEASawyer-v0", "ik", "auto", 256, 3),
+    "sawyer-position_orientation-b512": ("IKEASawyer-v0", "position_orientation", "auto", 512, 0),
+    "sawyer-joint_impedance-b512": ("IKEASawyer-v0", "joint_impedance", "auto", 512, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", list(MAIN_PATHS))
+def test_vec_env_main_path(path):
+    """``make_vec_env`` at its path's batch: a reset and 3 steps of uniform
+    random actions launch what the code implies (kernel 1: 10 settle rounds
+    a reset and, on the cursor, the n-substep and 1-substep snap launches a
+    step; on the lane backend one lane-solver launch a substep and none of
+    kernel 1; kernel 2 and 4 once a control step, ``action_repeat`` = 3 times
+    an ik step, and kernel 5 once an ik step), and leave the state finite
+    and in range (under the torque-space controllers: finite, no env
+    unstable). Then, but for those, 8 envs through the card and through
+    the port's CPU run (the plain versions): the discrete state exact, the
+    floats within 1e-3 (under ik the joints within 5e-3 and their velocities
+    within 5e-2: the converged DLS command carries ~5e-4 rad of arccos noise
+    near w = 1 on either device)."""
+    import furniture_tpu_torch as ft
+    from furniture_tpu_torch import convert
+    from furniture_tpu_torch.physics.megakernel import LanePhysics
+
+    dev = card()
+    env_id, control_type, backend, B, cpu_steps = MAIN_PATHS[path]
+    arm, steps = control_type is not None, 3
+    kw = {"control_type": control_type} if arm else {}
+    vec = ft.make_vec_env(env_id, num_envs=B, seed=0, sim=SimConfig(use_pallas=backend), **kw)
+    env = vec.env
+    assert isinstance(env.physics, LanePhysics) == (backend == "lane")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    acts = [torch.rand((B, env.dof), generator=gen, device=dev) * 2 - 1 for _ in range(steps)]
+    free = env.physics.free if arm else env.physics
+    counters = [free, lane_solver] + ([env.physics, env.dynamics] if arm else [])
+    counters += [env.ik] if arm and env.ik is not None else []
+    for c in counters:
+        c.launches = 0
+    vec.reset()
+    dones, unstable = 0, False
+    for a in acts:
+        _, rew, done, info = vec.step(a)
+        dones += bool(done.any())
+        unstable |= bool(info["unstable"].any())
+    torch.cuda.synchronize()
+    s = vec.state
+    if arm:
+        per_step = env.config.action_repeat if control_type == "ik" else 1
+        want = [10 + 10 * dones, 0, per_step * steps, per_step * steps] + ([steps] if env.ik is not None else [])
+        lo, hi = (torch.as_tensor(env.robot.jnt_range[:, i], dtype=torch.float32, device=dev) for i in (0, 1))
+        floats = list(s.parts) + [s.qpos, s.qvel, s.ik_target_pos, s.hand_quat_init, rew]
+        ranges = [(s.qpos >= lo) & (s.qpos <= hi), s.connect_step == 0, ~s.picked | s.touched,
+                  (s.hand_quat_init.norm(dim=-1) - 1).abs() < 1e-3]
+    else:
+        n_sub = env.config.n_substeps
+        want = [10 + 2 * steps + 10 * dones, 0] if backend != "lane" else \
+            [0, 100 + (n_sub + 1) * steps + 100 * dones]
+        floats = list(s.parts) + [rew]
+        ranges = [(s.selected >= -1) & (s.selected < env._P),
+                  (s.connect_step >= 0) & (s.connect_step <= env.config.num_connect_steps),
+                  s.cursor_pos.abs() <= env.config.cursor_boundary]
+    assert [c.launches for c in counters] == want, (path, dones)
+    assert all(bool(torch.isfinite(t).all()) for t in floats)
+    if control_type in ("position_orientation", "joint_impedance"):
+        assert not unstable
+        return
+    ranges += [(s.group >= 0) & (s.group < env._P), (s.num_connected >= 0) & (s.num_connected <= env._W),
+               (s.subtask >= -1) & (s.subtask < env._P), (s.t >= 0) & (s.t <= steps),
+               (s.parts.quat.norm(dim=-1) - 1).abs() < 1e-3]
+    assert [bool(r.all()) for r in ranges] == [True] * len(ranges)
+    cpu_env = type(env)(env.config, device="cpu")
+    to_np, from_np = ((convert.arm_state_to_numpy, convert.arm_state_from_numpy) if arm else
+                      (convert.cursor_state_to_numpy, convert.cursor_state_from_numpy))
+    gen.manual_seed(2)
+    st_gpu = env.reset_batch(8, gen)
+    st_cpu = from_np(to_np(st_gpu), "cpu")
+    for a in acts[:cpu_steps]:
+        st_gpu = env.step_batch(st_gpu, a[:8])[0]
+        st_cpu = cpu_env.step_batch(st_cpu, a[:8].cpu())[0]
+    g, c = to_np(st_gpu), to_np(st_cpu)
+    exact = ["group", "num_connected", "connect_step", "t"]
+    exact += ["touched", "picked", "touch_l", "touch_r"] if arm else ["selected"]
+    for k in exact:
+        np.testing.assert_array_equal(g[k], c[k], err_msg=k)
+    ik = control_type == "ik"
+    bounds = {"pos": 1e-3, "quat": 1e-3, "lin_vel": 1e-3, "ang_vel": 1e-3}
+    if arm:
+        bounds |= {"ik_target_pos": 1e-3, "qpos": 5e-3 if ik else 1e-3, "qvel": 5e-2 if ik else 1e-3}
+    gaps = {k: float(np.abs(g[k] - c[k]).max()) for k in bounds}
+    assert all(gaps[k] <= bounds[k] for k in bounds), gaps
