@@ -16,7 +16,7 @@ and the paths that no cell runs yet. It imports nothing of JAX.
 
 0. the card tests, in a process of their own, with their pass count;
 1. build: every kernel source with ``nvcc``, kernels 1-3 also in their
-   phase-clock builds (``-DFT_PHASE_CLOCKS``), eight at once, and each
+   phase-clock builds (``-DFT_PHASE_CLOCKS``), nine at once, and each
    build's ``-Xptxas -v`` report;
 2. each kernel alone, after a warm-up, by CUDA events: ms a launch as the
    host enqueues them (beside the host's ms a call), ms a launch queued
@@ -36,7 +36,13 @@ and the paths that no cell runs yet. It imports nothing of JAX.
    (``arm_ik.cu``) on Sawyer ik at B = 256, each held to the float64 truth
    on the CPU (G1, G2 within 1e-4 of the truth's largest entry and 4x the
    plain gap; the IK's 90th percentile within 4x the plain one), each also
-   at one block of 4 envs (its latency floor). For kernels 1-3 also the blocks an SM holds, the latency floor
+   at one block of 4 envs (its latency floor); kernel 6 (``assembly.cu``), the
+   connect attempt of the cursor at B = 4096 on staged connects
+   (``staged_connects``) on table_lack and on bookcase_besta_0170 (C = 40),
+   and the cursor's snap-back move on table_lack, each held to its plain
+   version on the same inputs (discrete outputs equal, floats within 1e-5)
+   and at one block of 4 envs (its latency floor; latency-bound, so no
+   bound is reported). For kernels 1-3 also the blocks an SM holds, the latency floor
    (the block barriers of a launch as the phase-clock build counts them x
    a bare barrier's round trip at that occupancy x the waves of blocks) and
    each phase's share of a block's clock;
@@ -320,11 +326,13 @@ def build() -> None:
     ``nvcc`` at once; each build's register, shared-memory and spill report."""
     from furniture_tpu_torch import _cuda
     from furniture_tpu_torch.controllers import ik
+    from furniture_tpu_torch.envs import assembly
     from furniture_tpu_torch.physics import arm_dynamics, arm_megakernel, lane_solver, megakernel
 
     t0 = time.perf_counter()
     physics = [megakernel, arm_megakernel, lane_solver]
-    builds = [(m, ()) for m in physics + [arm_dynamics, ik]] + [(m, _cuda.PHASE_CLOCKS) for m in physics]
+    builds = ([(m, ()) for m in physics + [arm_dynamics, ik, assembly]]
+              + [(m, _cuda.PHASE_CLOCKS) for m in physics])
     procs = [_cuda.start_build(m.SOURCE, d) for m, d in builds]
     for p in procs:
         _cuda.finish_build(p)
@@ -572,6 +580,56 @@ def kernel5(dev, watts: float) -> dict:
     return rec
 
 
+def kernel6(dev) -> dict:
+    """Kernel 6, the cursor's connect attempt at B = ``MAIN_B`` on staged
+    connects on table_lack and on bookcase_besta_0170 (the most sites), and
+    its snap-back move on table_lack, each held first to its plain version
+    on the same inputs and timed with it, and at one block of 4 envs (its
+    latency floor)."""
+    import torch
+
+    from furniture_tpu_torch.envs.assembly import AssemblyOps, library
+    from torch_gpu_holds import staged_connects
+
+    def card(x):
+        return type(x)(*map(card, x)) if isinstance(x, tuple) else x.to(dev)
+
+    def leaves(x):
+        return [t for f in x for t in leaves(f)] if isinstance(x, tuple) else [x]
+
+    def hold(what, got, want):
+        gap, same = 0.0, True
+        for g, w in zip(leaves(got), leaves(want)):
+            if g.is_floating_point():
+                gap = max(gap, (g - w).abs().max().item())
+            else:
+                same = same and torch.equal(g, w)
+        held(what, {"float_gap": gap, "discrete_equal": same,
+                    "problem": None if same and gap <= 1e-5 else "discrete outputs differ or floats over 1e-5"})
+
+    out = {}
+    for name in ("table_lack_0825", "bookcase_besta_0170"):
+        cpu_ops, st, connect, held_parts, _, _ = staged_connects(name, MAIN_B, seed=MAIN_B)
+        ops = AssemblyOps(cpu_ops.model, cpu_ops.config, dev)
+        st, connect, held_parts = card(st), connect.to(dev), held_parts.to(dev)
+        one = [card(x) for x in staged_connects(name, 4, seed=4)[1:4]]
+        hold(f"kernel 6 attempt {name} B={MAIN_B}", ops.attempt(st, connect, held=held_parts),
+             ops.plain_attempt(st, connect, held=held_parts))
+        rec = time_kernel(lambda: ops.attempt(st, connect, held=held_parts),
+                          lambda: ops.plain_attempt(st, connect, held=held_parts), 200)
+        rec["latency_floor_ms"] = queued_ms(lambda: ops.attempt(one[0], one[1], held=one[2]), 200)
+        rec["smem_bytes"] = library().connect_smem_bytes(ops._P, ops._C, ops.conn_angles.shape[1])
+        report(f"kernel 6 cursor attempt {name} B={MAIN_B}", rec)
+        out[name] = rec
+        if name == "table_lack_0825":
+            hold(f"kernel 6 snap-back move {name} B={MAIN_B}", ops.snap_move(st), ops.plain_snap_move(st))
+            rec = time_kernel(lambda: ops.snap_move(st), lambda: ops.plain_snap_move(st), 200)
+            rec["latency_floor_ms"] = queued_ms(lambda: ops.snap_move(one[0]), 200)
+            report(f"kernel 6 cursor snap-back move {name} B={MAIN_B}", rec)
+            out[name + " snap-back move"] = rec
+    return out
+
+
 def paths(dev) -> dict:
     """The paths no benchmark cell runs yet, by CUDA events or the host's
     clock around synchronised work."""
@@ -705,8 +763,9 @@ def main() -> None:
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     kernels = {"free_part_megakernel": kernel1(dev, watts, sm_count), "arm_megakernel": kernel2(dev, watts, sm_count),
                "lane_solver": kernel3(dev, watts, sm_count), "arm_joint_dynamics": kernel4(dev, watts),
-               "arm_ik": kernel5(dev, watts)}
-    sources = ("megakernel.cu", "arm_megakernel.cu", "lane_solver.cu", "arm_dynamics.cu", "arm_ik.cu")
+               "arm_ik": kernel5(dev, watts), "connect": kernel6(dev)}
+    sources = ("megakernel.cu", "arm_megakernel.cu", "lane_solver.cu", "arm_dynamics.cu", "arm_ik.cu",
+               "assembly.cu")
     timed_paths = paths(dev)
     print(f"{card} | {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [

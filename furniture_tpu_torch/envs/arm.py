@@ -36,9 +36,10 @@ Every control step is one launch of the arm kernel through
 one launch of the joint-dynamics kernel (``physics/arm_dynamics.py``) that
 computes its matrices G1, G2; an ik step first launches the IK kernel
 (``controllers/ik.py::ArmIK``) once, for the IK target's update and the DLS
-solve of every arm; the reset's ten settle rounds go through the
-free-part kernel or, with ``SimConfig(use_pallas="lane")``, through the
-lane-solver backend. Where the JAX package branches per env with
+solve of every arm; the connect attempt with its snap-back is one launch of
+the connect kernel (``AssemblyOps.attempt``); the reset's ten settle rounds
+go through the free-part kernel or, with ``SimConfig(use_pallas="lane")``,
+through the lane-solver backend. Where the JAX package branches per env with
 ``lax.cond``, this module computes both sides and selects on the batch. On
 the card an impedance or ik step synchronises the host once (twice a
 ``VecEnv.step`` with its ``done.any()``): in the list index of
@@ -75,7 +76,7 @@ from ..physics.arm_megakernel import ArmMegaPhysics
 from ..physics.collide import floor_contacts
 from ..physics.engine import physics_tables, robot_contact_tables
 from ..physics.megakernel import make_batched_substeps
-from ..physics.state import PartState, init_state, zero_vel
+from ..physics.state import PartState, init_state
 from ..robots import AGENT_SPECS, compile_robot
 from ..robots import kinematics as K
 from ..utils.init_pool import load_pool
@@ -85,10 +86,8 @@ from .assembly import (
     apply_reset_variants,
     instability_guard,
     pool_to_device,
-    rows,
     sample_placement,
     settle_parts,
-    tree_where,
 )
 from .cursor import _squeeze, _unsqueeze, resolve_device
 
@@ -235,7 +234,6 @@ class ArmEnv:
         self._ctrl_hi = f32(r.act_ctrlrange[:, 1])
         self._init_qpos = f32(r.init_qpos)
         self._identity_quat = f32([1.0, 0.0, 0.0, 0.0])
-        self._conn_part = i64(m.conn_part)
         self._tt = self.physics._plain.tables
         if self.control_type in NEW_CONTROLLERS:
             self._ctrl_consts = self._controller_constants()
@@ -459,36 +457,14 @@ class ArmEnv:
             states = self._substeps(states, ctrl, None, cfg.n_substeps)
         else:
             states = self._controller_step(states, actions[:, :-1])
+        # the connect attempt: the first part touched by both fingers of any
+        # arm against all others, a snap on a single aligned connect press,
+        # then the post-connect snap-back
         with span("ft.env.connect"):
-            return self._connect_phase(states, actions[:, -1])
-
-    def _connect_phase(self, state: ArmState, connect) -> ArmState:
-        # connect attempt: the first part touched by both fingers of any arm
-        both = torch.any(state.touch_l & state.touch_r, dim=1)          # [B,P]
-        any_touch = torch.any(both, -1)
-        target_part = torch.argmax(both.to(torch.uint8), -1)
-        conn_group = state.group[:, self._conn_part]
-        g1 = rows(state.group, target_part)
-        in1 = conn_group == g1[:, None]
-        in2 = torch.ones_like(in1)
-        # arm agents snap + weld on a single aligned connect press
-        connected = self.ops.try_connect(state, in1, in2, num_connect_steps=0)
-        missed = state._replace(connect_step=torch.zeros_like(state.connect_step))
-        state = tree_where((connect > 0) & any_touch, connected, missed)
-
-        # post-connect pose snap-back
-        snap = state.connected_body1 >= 0
-        p1 = torch.clamp(state.connected_body1, min=0)
-        move = state.connected_body1_pos - rows(state.parts.pos, p1)
-        moved = zero_vel(
-            self.ops.move_group(state.parts, state.group, p1, move, state.connected_body1_quat)
-        )
-        return state._replace(
-            parts=tree_where(snap, moved, state.parts),
-            connected_body1=torch.where(
-                snap, torch.full_like(state.connected_body1, -1), state.connected_body1
-            ),
-        )
+            return self.ops.attempt(
+                states, actions[:, -1], touch=(states.touch_l, states.touch_r),
+                num_connect_steps=0, snap_back=True,
+            )[0]
 
     def _guard(self, state: ArmState):
         """Divergence containment: sanitize the lane and return the

@@ -20,16 +20,97 @@ The state is any NamedTuple carrying the assembly fields::
     connected_body1: [B] int32  part idx for the post-settle pose snap-back
     connected_body1_pos: [B,3]
     connected_body1_quat: [B,4]
+
+The envs' connect attempt goes through :meth:`AssemblyOps.attempt` and the
+cursor's post-connect snap-back move through :meth:`AssemblyOps.snap_move`.
+For CUDA tensors each is one launch of ``physics/csrc/assembly.cu`` (see the
+note at the top of the ``.cu`` file), with no host synchronisation; for CPU
+tensors each runs its plain version (:meth:`AssemblyOps.plain_attempt`,
+:meth:`AssemblyOps.plain_snap_move`, around :meth:`AssemblyOps.try_connect`),
+which the kernel is held against; another device raises. The kernel takes
+every furniture model, within ``MAX_P`` parts, ``MAX_C`` connector sites,
+``MAX_W`` weld rows and ``MAX_A`` table angles a site, which an
+``AssemblyOps`` on the card holds its model to. ``AssemblyOps.launches``
+counts the kernel's launches, and nothing else.
 """
 
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import numpy as np
 import torch
 
+from .. import _cuda
 from .. import transforms as T
 from ..physics.state import PartState, zero_vel
 from ..utils.init_pool import stack_pool
+
+SOURCE = Path(__file__).resolve().parent.parent / "physics" / "csrc" / "assembly.cu"
+
+# the .cu file's limits (checked when the library loads)
+MAX_P, MAX_C, MAX_W, MAX_A = 32, 64, 64, 8
+ATTEMPT, SNAP_MOVE = 0, 1
+
+# the kernel's argument block (``Args`` in the .cu file), field by field
+_STATE = ("pos", "quat", "lin_vel", "ang_vel", "group", "conn_connected", "weld_active",
+          "num_connected", "subtask", "connect_step", "body1", "body1_pos", "body1_quat")
+_TABLES = ("conn_pos", "conn_part", "compl_", "cos_a", "sin_a", "angle_mask", "has_angles",
+           "site_pos", "site_part", "weld_part1", "weld_part2", "weld_lookup")
+_INTS = ("B", "P", "C", "W", "A", "S", "connect_stride", "touch_sb", "touch_sa", "arms",
+         "n_try", "n_interp", "snap_back")
+_FLOATS = ("pos_dist", "half_pos_dist", "rot_up", "rot_fwd", "project_dist")
+
+
+class _Args(ctypes.Structure):
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in _STATE]
+        + [(n, ctypes.c_void_p) for n in ("connect", "held", "touch_l", "touch_r")]
+        + [(n + "_out", ctypes.c_void_p) for n in _STATE]
+        + [("held_out", ctypes.c_void_p)]
+        + [(n, ctypes.c_void_p) for n in _TABLES]
+        + [(n, ctypes.c_int) for n in _INTS]
+        + [(n, ctypes.c_float) for n in _FLOATS]
+    )
+
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        lib = _cuda.load(SOURCE)
+        i = ctypes.c_int
+        lib.connect_step.argtypes = [i, ctypes.POINTER(_Args), ctypes.c_void_p]
+        lib.connect_step.restype = i
+        lib.connect_error_string.argtypes = [i]
+        lib.connect_error_string.restype = ctypes.c_char_p
+        names = ("max_p", "max_c", "max_w", "max_a", "args_bytes")
+        for n in names:
+            getattr(lib, f"connect_{n}").argtypes = []
+            getattr(lib, f"connect_{n}").restype = i
+        layout = tuple(getattr(lib, f"connect_{n}")() for n in names)
+        if layout != (MAX_P, MAX_C, MAX_W, MAX_A, ctypes.sizeof(_Args)):
+            raise RuntimeError(f"assembly.cu limits or argument block changed: {layout}")
+        lib.connect_smem_bytes.argtypes = [i, i, i]
+        lib.connect_smem_bytes.restype = i
+        _lib = lib
+    return _lib
+
+
+def check_limits(model) -> None:
+    """Raises where ``model`` is beyond the connect kernel's limits."""
+    P, C, W = model.n_parts, model.n_conn, model.n_welds
+    A = np.asarray(model.conn_angles).shape[-1]
+    if P > MAX_P or C > MAX_C or W > MAX_W or A > MAX_A:
+        raise ValueError(
+            f"the model has {P} parts, {C} connector sites, {W} weld rows and {A} table angles a "
+            f"site: the connect kernel takes at most MAX_P = {MAX_P}, MAX_C = {MAX_C}, MAX_W = "
+            f"{MAX_W} and MAX_A = {MAX_A}"
+        )
 
 
 def tree_where(mask, new, old):
@@ -52,6 +133,12 @@ class AssemblyOps:
         self.model = model
         self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            check_limits(model)
+            if self.device.index is None:
+                # tensors report a concrete index; compare against the same
+                self.device = torch.device("cuda", torch.cuda.current_device())
+        self.launches = 0
         self._P = model.n_parts
         self._C = model.n_conn
         self._W = model.n_welds
@@ -79,6 +166,33 @@ class AssemblyOps:
         self.weld_part2 = i64(m.weld_part2)
         self.weld_lookup = i64(m.weld_lookup)
         self.part_labels = torch.arange(self._P, device=dev)
+        self._args = self._kernel_args() if dev.type == "cuda" else None
+
+    def _kernel_args(self) -> _Args:
+        """The kernel's argument block with the model's tables and the
+        alignment thresholds filled in; the tables, kept on the device, are
+        those of the plain version (the table angles' cosines and sines as
+        ``T.rotate_vector`` computes them)."""
+        i32 = lambda t: t.to(torch.int32).contiguous()
+        rad = torch.deg2rad(self.conn_angles)
+        self._tables = {
+            "conn_pos": self.conn_pos, "conn_part": i32(self.conn_part),
+            "compl_": self.compl.contiguous(), "cos_a": torch.cos(rad), "sin_a": torch.sin(rad),
+            "angle_mask": self.conn_angle_mask.contiguous(), "has_angles": self.conn_has_angles,
+            "site_pos": self.site_pos, "site_part": i32(self.site_part),
+            "weld_part1": i32(self.weld_part1), "weld_part2": i32(self.weld_part2),
+            "weld_lookup": i32(self.weld_lookup),
+        }
+        a = _Args()
+        for n, t in self._tables.items():
+            setattr(a, n, t.data_ptr())
+        a.P, a.C, a.W, a.S = self._P, self._C, self._W, len(self.site_pos)
+        a.A = self.conn_angles.shape[1]
+        a.n_interp = self.config.num_connect_steps
+        cfg = self.config.align
+        a.pos_dist, a.half_pos_dist = cfg.pos_dist, cfg.pos_dist / 2
+        a.rot_up, a.rot_fwd, a.project_dist = cfg.rot_dist_up, cfg.rot_dist_forward, cfg.project_dist
+        return a
 
     # -- geometry helpers ----------------------------------------------------
 
@@ -328,6 +442,185 @@ class AssemblyOps:
         on_found = tree_where(state.connect_step < N, interp, snap)
         on_missing = state._replace(connect_step=torch.zeros_like(state.connect_step))
         return tree_where(found, on_found, on_missing)
+
+    # -- the envs' connect attempt: the kernel on the card, plain on the CPU ----
+
+    def attempt(self, state, connect, held=None, touch=None, num_connect_steps=None,
+                snap_back=False):
+        """One connect attempt of an env step, where the press ``connect``
+        [B] is positive; returns ``(state, held)``.
+
+        The candidate sites come from ``held`` [B,2] int32, the parts two
+        cursors hold (site1 on cursor 0's group, site2 on cursor 1's; both
+        must hold, and a snap lets go of cursor 1's part: the new ``held``),
+        or from ``touch`` = (touch_l, touch_r) [B,arms,P] bool (site1 on the
+        group of the first part both fingers of an arm touch, site2
+        anywhere; ``held`` comes back None). With ``snap_back`` the
+        post-connect snap-back move of ``connected_body1``'s group follows.
+        The kernel for CUDA tensors, :meth:`plain_attempt` for CPU tensors."""
+        if self._on_card(state.group):
+            return self._launch_attempt(state, connect, held, touch, num_connect_steps, snap_back)
+        return self.plain_attempt(state, connect, held, touch, num_connect_steps, snap_back)
+
+    def snap_move(self, state) -> PartState:
+        """The cursor's post-connect snap-back move of every env, velocities
+        zeroed (the caller runs the one settle substep and keeps it where
+        ``connected_body1 >= 0``): the kernel for CUDA tensors,
+        :meth:`plain_snap_move` for CPU tensors."""
+        if self._on_card(state.group):
+            return self._launch_snap_move(state)
+        return self.plain_snap_move(state)
+
+    def plain_attempt(self, state, connect, held=None, touch=None, num_connect_steps=None,
+                      snap_back=False):
+        """:meth:`attempt` in plain PyTorch around :meth:`try_connect`."""
+        conn_group = state.group[:, self.conn_part]                         # [B,C]
+        if held is not None:
+            g1 = rows(state.group, torch.clamp(held[:, 0], min=0))
+            g2 = rows(state.group, torch.clamp(held[:, 1], min=0))
+            in1, in2 = conn_group == g1[:, None], conn_group == g2[:, None]
+            gate = (connect > 0) & (held[:, 0] >= 0) & (held[:, 1] >= 0)
+        else:
+            both = torch.any(touch[0] & touch[1], dim=1)                    # [B,P]
+            target_part = torch.argmax(both.to(torch.uint8), -1)
+            in1 = conn_group == rows(state.group, target_part)[:, None]
+            in2 = torch.ones_like(in1)
+            gate = (connect > 0) & torch.any(both, -1)
+        prev = state.num_connected
+        connected = self.try_connect(state, in1, in2, num_connect_steps)
+        missed = state._replace(connect_step=torch.zeros_like(state.connect_step))
+        state = tree_where(gate, connected, missed)
+        if held is not None:
+            held = held.clone()
+            held[:, 1] = torch.where(
+                state.num_connected > prev, torch.full_like(prev, -1), held[:, 1]
+            )
+        if snap_back:
+            snap = state.connected_body1 >= 0
+            state = state._replace(
+                parts=tree_where(snap, self.plain_snap_move(state), state.parts),
+                connected_body1=torch.where(
+                    snap, torch.full_like(state.connected_body1, -1), state.connected_body1
+                ),
+            )
+        return state, held
+
+    def plain_snap_move(self, state) -> PartState:
+        """:meth:`snap_move` in plain PyTorch."""
+        p1 = torch.clamp(state.connected_body1, min=0)
+        move = state.connected_body1_pos - rows(state.parts.pos, p1)
+        return zero_vel(
+            self.move_group(state.parts, state.group, p1, move, state.connected_body1_quat)
+        )
+
+    def _on_card(self, x) -> bool:
+        kind = x.device.type
+        if kind not in ("cuda", "cpu"):
+            raise RuntimeError(f"no connect attempt for device {x.device}")
+        return kind == "cuda"
+
+    def _state_in(self, state) -> dict:
+        """The kernel's state inputs, checked and contiguous (no copy where
+        they already are)."""
+        if self._args is None or state.group.device != self.device:
+            raise ValueError(f"tables live on {self.device}, the state on {state.group.device}")
+        B, P, C, W = state.group.shape[0], self._P, self._C, self._W
+        f32, i32, b8 = torch.float32, torch.int32, torch.bool
+        want = {
+            "pos": (state.parts.pos, (B, P, 3), f32), "quat": (state.parts.quat, (B, P, 4), f32),
+            "lin_vel": (state.parts.lin_vel, (B, P, 3), f32),
+            "ang_vel": (state.parts.ang_vel, (B, P, 3), f32),
+            "group": (state.group, (B, P), i32),
+            "conn_connected": (state.conn_connected, (B, C), b8),
+            "weld_active": (state.weld_active, (B, W), b8),
+            "num_connected": (state.num_connected, (B,), i32),
+            "subtask": (state.subtask, (B, 2), i32),
+            "connect_step": (state.connect_step, (B,), i32),
+            "body1": (state.connected_body1, (B,), i32),
+            "body1_pos": (state.connected_body1_pos, (B, 3), f32),
+            "body1_quat": (state.connected_body1_quat, (B, 4), f32),
+        }
+        out = {}
+        for name, (x, shape, dtype) in want.items():
+            if x.dtype != dtype or tuple(x.shape) != shape or x.device != self.device:
+                raise ValueError(f"{name}: want {list(shape)} {dtype} on {self.device}, got "
+                                 f"{tuple(x.shape)} {x.dtype} on {x.device}")
+            out[name] = x.contiguous()
+        return out
+
+    def _run(self, mode: int, a: _Args, device) -> None:
+        lib = library()
+        with torch.cuda.device(device):
+            err = lib.connect_step(mode, ctypes.byref(a), torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError("connect kernel launch failed: " + lib.connect_error_string(err).decode())
+        self.launches += 1
+
+    def _launch_attempt(self, state, connect, held, touch, num_connect_steps, snap_back):
+        """One launch of the connect kernel; raises on anything it cannot take."""
+        ins = self._state_in(state)
+        B = state.group.shape[0]
+        if (connect.dtype != torch.float32 or connect.dim() != 1 or connect.shape[0] != B
+                or connect.device != self.device):
+            raise ValueError(f"connect: want [{B}] float32 on {self.device}, got "
+                             f"{tuple(connect.shape)} {connect.dtype} on {connect.device}")
+        if (held is None) == (touch is None):
+            raise ValueError("give the candidates by exactly one of held and touch")
+        a = self._args
+        for n, x in ins.items():
+            setattr(a, n, x.data_ptr())
+        outs = {n: torch.empty_like(x) for n, x in ins.items()}
+        for n, x in outs.items():
+            setattr(a, n + "_out", x.data_ptr())
+        a.connect, a.connect_stride = connect.data_ptr(), connect.stride(0)
+        held_out = None
+        if held is not None:
+            if held.dtype != torch.int32 or tuple(held.shape) != (B, 2) or held.device != self.device:
+                raise ValueError(f"held: want [{B}, 2] int32 on {self.device}, got "
+                                 f"{tuple(held.shape)} {held.dtype} on {held.device}")
+            held = held.contiguous()
+            held_out = torch.empty_like(held)
+            a.held, a.held_out, a.touch_l, a.touch_r = held.data_ptr(), held_out.data_ptr(), None, None
+            a.touch_sb = a.touch_sa = a.arms = 0
+        else:
+            tl, tr = touch
+            for x in (tl, tr):
+                if (x.dtype != torch.bool or x.dim() != 3 or x.shape[0] != B or x.shape[2] != self._P
+                        or x.device != self.device):
+                    raise ValueError(f"touch: want [{B}, arms, {self._P}] bool on {self.device}, "
+                                     f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+            if tl.stride() != tr.stride() or tl.stride(2) != 1:
+                tl, tr = tl.contiguous(), tr.contiguous()
+            a.held = a.held_out = None
+            a.touch_l, a.touch_r = tl.data_ptr(), tr.data_ptr()
+            a.touch_sb, a.touch_sa, a.arms = tl.stride(0), tl.stride(1), tl.shape[1]
+        a.B = B
+        a.n_try = self.config.num_connect_steps if num_connect_steps is None else num_connect_steps
+        a.snap_back = int(bool(snap_back))
+        self._run(ATTEMPT, a, state.group.device)
+        parts = PartState(outs["pos"], outs["quat"], outs["lin_vel"], outs["ang_vel"])
+        state = state._replace(
+            parts=parts, group=outs["group"], conn_connected=outs["conn_connected"],
+            weld_active=outs["weld_active"], num_connected=outs["num_connected"],
+            subtask=outs["subtask"], connect_step=outs["connect_step"],
+            connected_body1=outs["body1"], connected_body1_pos=outs["body1_pos"],
+            connected_body1_quat=outs["body1_quat"],
+        )
+        return state, held_out
+
+    def _launch_snap_move(self, state) -> PartState:
+        """One launch of the kernel's snap-back instance."""
+        ins = self._state_in(state)
+        a = self._args
+        for n, x in ins.items():
+            setattr(a, n, x.data_ptr())
+        outs = {n: torch.empty_like(ins[n]) for n in ("pos", "quat", "lin_vel", "ang_vel")}
+        for n in _STATE:
+            setattr(a, n + "_out", outs[n].data_ptr() if n in outs else None)
+        a.connect = a.held = a.held_out = a.touch_l = a.touch_r = None
+        a.B = state.group.shape[0]
+        self._run(SNAP_MOVE, a, state.group.device)
+        return PartState(outs["pos"], outs["quat"], outs["lin_vel"], outs["ang_vel"])
 
     def initial_subtask(self, B: int):
         if self._W:

@@ -9,9 +9,11 @@ through the free-part kernel (``physics/megakernel.py``) or, with
 ``SimConfig(use_pallas="lane")``, through the lane-solver backend
 (``physics/lane_solver.py``); a connect snaps
 site2's group onto site1 after ``num_connect_steps`` aligned attempts and
-welds the two groups. The reward is sparse: ``success_reward`` per new
-connect, minus ``unstable_penalty_coef`` for a lane the instability guard
-had to sanitize.
+welds the two groups. The connect attempt and the post-connect snap-back
+move are one launch each of the connect kernel (``AssemblyOps.attempt`` and
+``AssemblyOps.snap_move``, ``envs/assembly.py``). The reward is sparse:
+``success_reward`` per new connect, minus ``unstable_penalty_coef`` for a
+lane the instability guard had to sanitize.
 
 Entry points run on CUDA by default (``device=None``); only an explicit
 ``device="cpu"`` runs on the CPU, where the physics is the kernel's plain
@@ -118,7 +120,6 @@ class CursorEnv:
         self._part_of = torch.as_tensor(
             np.asarray(tb["geom_part"])[None, :] == np.arange(self._P)[:, None], device=dev
         )                                                        # [P,G]
-        self._conn_part = torch.as_tensor(np.asarray(m.conn_part, np.int64), device=dev)
         # constants of the step, made once (a tensor built from a Python
         # list per step would be a blocking host-to-device copy)
         b = self.config.cursor_boundary
@@ -153,22 +154,6 @@ class CursorEnv:
         d = torch.clamp(torch.abs(local) - self._gsize, min=0.0)
         touch = torch.linalg.norm(d, dim=-1) <= _CURSOR_MARGIN              # [B,G]
         return torch.any(self._part_of[None] & touch[:, None, :], -1)
-
-    def _try_connect(self, state: CursorState) -> CursorState:
-        """Cursor connect: both held groups' conn sites are the candidates."""
-        conn_group = state.group[:, self._conn_part]                        # [B,C]
-        g1 = rows(state.group, torch.clamp(state.selected[:, 0], min=0))
-        g2 = rows(state.group, torch.clamp(state.selected[:, 1], min=0))
-        prev = state.num_connected
-        state = self.ops.try_connect(
-            state, conn_group == g1[:, None], conn_group == g2[:, None]
-        )
-        # deselect cursor 1 on a successful connect
-        selected = state.selected.clone()
-        selected[:, 1] = torch.where(
-            state.num_connected > prev, torch.full_like(prev, -1), state.selected[:, 1]
-        )
-        return state._replace(selected=selected)
 
     # -- cursor sub-actions ------------------------------------------------
 
@@ -303,12 +288,11 @@ class CursorEnv:
         state = self._cursor_update(state, 0, action[:, 0:7])
         state = self._cursor_update(state, 1, action[:, 7:14])
 
-        both = (state.selected[:, 0] >= 0) & (state.selected[:, 1] >= 0)
-        do_connect = (action[:, 14] > 0) & both
+        # the connect attempt: both held groups' conn sites are the
+        # candidates; a snap lets go of cursor 1's part
         with span("ft.env.connect"):
-            connected = self._try_connect(state)
-        missed = state._replace(connect_step=torch.zeros_like(state.connect_step))
-        state = tree_where(do_connect, connected, missed)
+            state, selected = self.ops.attempt(state, action[:, 14], held=state.selected)
+        state = state._replace(selected=selected)
 
         held = torch.zeros(state.group.shape, dtype=torch.bool, device=self.device)
         for i in range(2):
@@ -318,16 +302,6 @@ class CursorEnv:
                 (sel >= 0)[:, None], held | (state.group == g_sel[:, None]), held
             )
         return state, held
-
-    def _snap_move(self, state: CursorState) -> PartState:
-        """Post-connect pose snap-back move (velocities zeroed); the caller
-        runs the one settle substep and selects by ``connected_body1 >= 0``."""
-        p1 = torch.clamp(state.connected_body1, min=0)
-        move = state.connected_body1_pos - rows(state.parts.pos, p1)
-        moved = self.ops.move_group(
-            state.parts, state.group, p1, move, state.connected_body1_quat
-        )
-        return zero_vel(moved)
 
     def _finish(self, state: CursorState, prev_connected):
         """Instability guard + reward + termination."""
@@ -377,7 +351,7 @@ class CursorEnv:
             # step's physics.
             with span("ft.env.connect"):
                 snap = states.connected_body1 >= 0
-                settled = self._physics(self._snap_move(states), states.group, gscale, 1)
+                settled = self._physics(self.ops.snap_move(states), states.group, gscale, 1)
                 states = states._replace(
                     parts=tree_where(snap, settled, states.parts),
                     connected_body1=torch.where(

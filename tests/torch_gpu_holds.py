@@ -8,15 +8,20 @@ or hold parts at the velocity clamp in contact, where the plain version
 itself jumps by far more than the bound in a few envs: so a recorded call
 is held by the rule for such a state, the median over the envs within the
 bound, at most a tenth of them over it, and every env within 10x the plain
-version's own spread. Imports neither JAX nor the JAX package.
+version's own spread. ``staged_connects`` stages the connect attempts that
+the connect kernel is held on (the cells' random actions rarely connect).
+Imports neither JAX nor the JAX package.
 """
 
 import collections
 import dataclasses
+from typing import NamedTuple
 
+import numpy as np
 import pytest
 import torch
 
+from furniture_tpu_torch import transforms as T
 from furniture_tpu_torch.physics import engine, lane_solver
 from furniture_tpu_torch.physics.state import PartState
 from furniture_tpu_torch.robots import kinematics as K
@@ -324,3 +329,188 @@ def assert_held(phys, calls, what=""):
     for k, call in enumerate(calls):
         for h in hold_call(phys, call):
             assert h["problem"] is None, (what, k, h)
+
+
+# -- staged connects, for the connect kernel (envs/assembly.py, csrc/assembly.cu) --
+
+
+class ConnectState(NamedTuple):
+    """The assembly fields of an env state: what a connect attempt reads and
+    writes (``AssemblyOps.attempt`` takes any state that has them)."""
+
+    parts: PartState
+    group: torch.Tensor
+    conn_connected: torch.Tensor
+    weld_active: torch.Tensor
+    num_connected: torch.Tensor
+    subtask: torch.Tensor
+    connect_step: torch.Tensor
+    connected_body1: torch.Tensor
+    connected_body1_pos: torch.Tensor
+    connected_body1_quat: torch.Tensor
+
+
+def _axis_quat(axis, deg):
+    return T.quat_from_axis_angle(axis, torch.deg2rad(deg))
+
+
+def _unit_rows(rng, n: int):
+    v = torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32)
+    return v / v.norm(dim=-1, keepdim=True)
+
+
+def _pick(rng, pairs, conn_part, state, active):
+    """Per env a random site pair of ``pairs`` [n,2], both sites free and
+    their parts in two groups, where ``active``: ``(i [B], j [B], found
+    [B])``."""
+    g, used = state.group.numpy(), state.conn_connected.numpy()
+    gi, gj = g[:, conn_part[pairs[:, 0]]], g[:, conn_part[pairs[:, 1]]]
+    valid = (gi != gj) & ~used[:, pairs[:, 0]] & ~used[:, pairs[:, 1]] & active[:, None]
+    k = np.argmax(np.where(valid, rng.random(valid.shape), -1.0), 1)
+    ok = valid.any(1)
+    return (torch.as_tensor(pairs[k, 0]), torch.as_tensor(pairs[k, 1]),
+            torch.as_tensor(ok))
+
+
+def staged_connects(name: str, B: int, seed: int, arms: int = 0):
+    """``B`` envs of furniture ``name`` on the CPU, staged for a connect
+    attempt as ``preassemble`` places sites: ``(ops, state, connect,
+    held, touch, staged)``, ``held`` the cursors' parts [B,2] where
+    ``arms`` is 0, else ``touch`` = (touch_l, touch_r) [B,arms,P].
+
+    Every env: the parts as a reset places them, turned about the world z
+    axis by a random yaw and tilted 5-40 degrees about a horizontal axis (so
+    that no target frame lies at a tie of ``mat_to_quat``'s four cases,
+    where the quaternion's sign follows the rounding: the axis-aligned
+    sites of ``bookcase_besta_0170`` level two of its scores), a fifth of
+    the envs lowered 0.1-0.3 m (a snap there lifts); random velocities; 0, 1, 2 or W - 1 welds made first by
+    ``snap_connect`` (so a group that is already welded merges with
+    another, and a snap may close the last weld). Then a random
+    complementary site pair in two groups, site j's group moved onto site i
+    at one of i's table angles (a free-angle site: 5-175 degrees either
+    way): in the window (twist and tilt under 12 degrees; the sites at most
+    4 cm apart, or 6-9 cm along site i's up) or out of it by one threshold
+    (12-30 cm apart; 6-9 cm across site i's up; twist 35-55 degrees off a
+    table angle; tilt 35-60 degrees). ``connect_step`` is the snap's count
+    in half the envs, below it elsewhere; the press is negative in 15% of
+    the envs; a cursor lets go in 10%; the fingers of some arm both touch
+    site i's part first in 70%, none touch with both in 15%; a tenth of
+    the envs carry a snap-back (``connected_body1 >= 0``) in. ``staged``
+    [B] is True where a pair was placed."""
+    from furniture_tpu_torch.config import EnvConfig
+    from furniture_tpu_torch.envs.assembly import AssemblyOps, sample_placement, tree_where
+    from furniture_tpu_torch.models import compile_model
+
+    f32 = torch.float32
+    m = compile_model(name)
+    cfg = EnvConfig(furniture_name=name)
+    ops = AssemblyOps(m, cfg, "cpu")
+    rng = np.random.default_rng(seed)
+    P, C, W = m.n_parts, m.n_conn, m.n_welds
+    pos, quat = sample_placement(m, cfg, B, torch.Generator().manual_seed(seed), "cpu")
+    zq = _axis_quat(torch.tensor([0.0, 0.0, 1.0]).expand(B, 3),
+                    torch.as_tensor(rng.uniform(0, 360, B), dtype=f32))
+    flat = torch.as_tensor(np.concatenate([rng.normal(size=(B, 2)), np.zeros((B, 1))], 1), dtype=f32)
+    zq = T.quat_mul(_axis_quat(flat / flat.norm(dim=-1, keepdim=True),
+                               torch.as_tensor(rng.uniform(5, 40, B), dtype=f32)), zq)
+    pos = T.quat_rotate(zq[:, None], pos)
+    quat = T.quat_mul(zq[:, None], quat)
+    low = np.where(rng.random(B) < 0.2, rng.uniform(0.1, 0.3, B), 0.0)
+    pos[..., 2] -= torch.as_tensor(low, dtype=f32)[:, None]
+    vel = lambda: torch.as_tensor(rng.normal(0, 0.1, (B, P, 3)), dtype=f32)
+    i32 = lambda v, shape: torch.full(shape, v, dtype=torch.int32)
+    state = ConnectState(
+        parts=PartState(pos, quat, vel(), vel()),
+        group=torch.arange(P, dtype=torch.int32)[None].repeat(B, 1),
+        conn_connected=torch.zeros((B, C), dtype=torch.bool),
+        weld_active=torch.zeros((B, W), dtype=torch.bool),
+        num_connected=i32(0, (B,)), subtask=ops.initial_subtask(B), connect_step=i32(0, (B,)),
+        connected_body1=i32(-1, (B,)), connected_body1_pos=torch.zeros((B, 3)),
+        connected_body1_quat=torch.tensor([1.0, 0, 0, 0]).repeat(B, 1),
+    )
+    cp = np.asarray(m.conn_part)
+    pa, pb = np.asarray(m.conn_pair_a), np.asarray(m.conn_pair_b)
+    pairs = np.argwhere((pa[:, None] == pb[None]) & (pb[:, None] == pa[None]))
+    lookup = np.asarray(m.weld_lookup)
+    weldable = pairs[lookup[cp[pairs[:, 0]], cp[pairs[:, 1]]] >= 0]
+
+    # welds made first
+    n_pre = rng.choice([0, 1, 2, max(W - 1, 0)], B, p=[0.4, 0.25, 0.15, 0.2])
+    for r in range(int(n_pre.max()) if len(weldable) else 0):
+        i, j, ok = _pick(rng, weldable, cp, state, n_pre > r)
+        _, cquat = ops.conn_world(state.parts)
+        snapped = ops.snap_connect(state, i, j, cquat[torch.arange(B), i])
+        state = tree_where(ok, snapped, state)
+    state = state._replace(connected_body1=i32(-1, (B,)), connect_step=i32(0, (B,)))
+
+    # the staged pair
+    i, j, staged = _pick(rng, pairs, cp, state, np.ones(B, bool))
+    cpos, cquat = ops.conn_world(state.parts)
+    ar = torch.arange(B)
+    pos_i, q_i = cpos[ar, i], cquat[ar, i]
+    up_i = T.up_vector_from_quat(q_i)
+    has = torch.as_tensor(np.asarray(m.conn_has_angles))[i]
+    amask = np.asarray(m.conn_angle_mask)[i.numpy()]
+    a_idx = np.argmax(np.where(amask, rng.random(amask.shape), -1.0), 1)
+    table = torch.as_tensor(np.asarray(m.conn_angles, np.float32)[i.numpy(), a_idx])
+    sign = torch.as_tensor(rng.choice([-1.0, 1.0], B), dtype=f32)
+    free = sign * torch.as_tensor(rng.uniform(5, 175, B), dtype=f32)
+    kind = rng.choice(["near", "along", "far", "across", "twist", "tilt"], B,
+                      p=[0.35, 0.25, 0.1, 0.1, 0.1, 0.1])
+    twist = sign * torch.as_tensor(np.where(kind == "twist", rng.uniform(35, 55, B),
+                                            rng.uniform(0, 12, B)), dtype=f32)
+    angle = torch.where(has, table + twist, free)
+    tilt = torch.as_tensor(np.where(kind == "tilt", rng.uniform(35, 60, B), rng.uniform(0, 12, B)),
+                           dtype=f32)
+    # the reference's up and forward vectors are rows of the frame: turning
+    # the frame by r on the right turns them by r's inverse
+    q_new = T.quat_mul(T.quat_mul(q_i, _axis_quat(up_i, -angle)),
+                       _axis_quat(_unit_rows(rng, B), tilt))
+    across = T.cross(up_i, _unit_rows(rng, B))
+    across = across / across.norm(dim=-1, keepdim=True)
+    mag = {"near": (0.0, 0.04), "along": (0.06, 0.09), "far": (0.12, 0.3), "across": (0.06, 0.09),
+           "twist": (0.0, 0.04), "tilt": (0.0, 0.04)}
+    lo, hi = (np.array([mag[k][e] for k in kind]) for e in (0, 1))
+    size = torch.as_tensor(rng.uniform(lo, hi) * rng.choice([-1.0, 1.0], B), dtype=f32)[:, None]
+    direction = torch.where(torch.as_tensor(kind == "far")[:, None], _unit_rows(rng, B),
+                            torch.where(torch.as_tensor(kind == "across")[:, None], across, up_i))
+    p2 = torch.as_tensor(cp)[j]
+    site_j = state.parts.pos[ar, p2] + T.quat_rotate(q_new, torch.as_tensor(
+        np.asarray(m.conn_pos, np.float32))[j])
+    offset = pos_i + size * direction - site_j
+    moved = ops.move_group(state.parts, state.group, p2, offset, q_new)
+    state = state._replace(parts=tree_where(staged, moved, state.parts))
+
+    n_conn = cfg.num_connect_steps
+    step = np.where(rng.random(B) < 0.5, n_conn, rng.integers(0, max(n_conn, 1), B))
+    back = rng.random(B) < 0.1
+    b1 = torch.as_tensor(np.where(back, rng.integers(0, P, B), -1), dtype=torch.int32)
+    b1c = b1.clamp(min=0).long()
+    state = state._replace(
+        connect_step=torch.as_tensor(step, dtype=torch.int32), connected_body1=b1,
+        connected_body1_pos=state.parts.pos[ar, b1c] + torch.as_tensor(
+            rng.uniform(-0.02, 0.02, (B, 3)), dtype=f32),
+        connected_body1_quat=T.quat_normalize(state.parts.quat[ar, b1c] + torch.as_tensor(
+            rng.normal(0, 0.05, (B, 4)), dtype=f32)),
+    )
+    connect = torch.as_tensor(np.where(rng.random(B) < 0.85, rng.uniform(0.1, 1, B),
+                                       rng.uniform(-1, 0, B)), dtype=f32)
+    held = touch = None
+    pi = torch.as_tensor(cp)[i]
+    if arms == 0:
+        held = torch.stack([pi, p2], 1).to(torch.int32)
+        let_go = torch.as_tensor(rng.random((B, 2)) < 0.05)
+        held = torch.where(let_go, torch.full_like(held, -1), held)
+    else:
+        tl = torch.as_tensor(rng.random((B, arms, P)) < 0.15)
+        tr = torch.as_tensor(rng.random((B, arms, P)) < 0.15)
+        u = rng.random(B)
+        first = torch.as_tensor(u < 0.7)
+        none = torch.as_tensor((u >= 0.7) & (u < 0.85))
+        lower = torch.arange(P)[None, None] < pi[:, None, None]
+        tr = tr & ~(first[:, None, None] & lower) & ~none[:, None, None]
+        arm = torch.as_tensor(rng.integers(0, arms, B))
+        on = first[:, None, None] & (torch.arange(arms)[None, :, None] == arm[:, None, None]) & (
+            torch.arange(P)[None, None] == pi[:, None, None])
+        touch = (tl | on, tr | on)
+    return ops, state, connect, held, touch, staged
