@@ -26,8 +26,10 @@ and the paths that no cell runs yet. It imports nothing of JAX.
    kernel 1 (``megakernel.cu``, n = 50) on table_lack at B = 4096 after a
    reset and 3 random steps, free and welded (two recipe steps
    preassembled), held by ``hold_free`` after 5 substeps (1e-4) and 50
-   (1e-3); kernel 2 (``arm_megakernel.cu``, n = 50) on Sawyer impedance at
-   B = 512, held by ``hold_call`` (5e-4 after 5 substeps, 1e-3 after 50);
+   (1e-3), and its global-scratch instance on chair_balser at B = 1024 (held
+   the same way), timed in turns with table_lack's; kernel
+   2 (``arm_megakernel.cu``, n = 50) on Sawyer impedance at B = 512, held
+   by ``hold_call`` (5e-4 after 5 substeps, 1e-3 after 50);
    kernel 3 (``lane_solver.cu``, 12 sweeps) on a lane
    step's contacts at B = 4096 and with every lane in contact, beside
    ``solve_contacts_lane`` as a whole and ``engine._solve_contacts``, held
@@ -87,6 +89,9 @@ ARM_PHASES = ("joint update+chain+hand geoms | held clamp+frames+aggregates", "n
 LANE_PHASES = ("loads", "preparation+counts", "sweeps: lane half", "sweeps: group half")
 # kernel 3's two routes, timed in turns: one lane a thread, global scratch
 LANE_ROUTE_MODELS = ("table_lack_0825", "chair_balser_0115")
+# kernel 1's global-scratch route at its cell's model and batch
+# (chair_balser.random-b1024), timed in turns with table_lack's one lane a thread
+SCRATCH_MODEL, SCRATCH_B = "chair_balser_0115", 1024
 
 
 def fail(msg: str) -> None:
@@ -346,8 +351,14 @@ def build() -> None:
 
 
 def kernel1(dev, watts: float, sm_count: int) -> dict:
-    """Kernel 1 at n = 50 on table_lack, B = ``MAIN_B``: free parts, and
-    welded by two recipe steps preassembled."""
+    """Kernel 1 at n = 50, after a reset and 3 random steps, in three cases:
+    table_lack at B = ``MAIN_B``, free parts and welded by two recipe steps
+    preassembled (one lane a thread), and ``SCRATCH_MODEL`` at B =
+    ``SCRATCH_B``, whose every launch must take the global-scratch route.
+    Each is held by ``hold_free`` and timed with its plain version and phase
+    shares, the free cases with their bound. Then the two free cases' ms a
+    launch timed in turns (table_lack, chair, chair, table_lack) by CUDA
+    events."""
     import torch
 
     from furniture_tpu_torch.config import EnvConfig
@@ -355,23 +366,36 @@ def kernel1(dev, watts: float, sm_count: int) -> dict:
     from furniture_tpu_torch.physics.state import PartState
     from torch_gpu_holds import hold_free
 
-    out = {}
-    for case, cfg in (("free", EnvConfig()), ("welded", EnvConfig(preassembled=(0, 1)))):
+    cases = (("free", EnvConfig(), MAIN_B, (10, 2)),
+             ("welded", EnvConfig(preassembled=(0, 1)), MAIN_B, (10, 2)),
+             ("global_scratch", EnvConfig(furniture_name=SCRATCH_MODEL), SCRATCH_B, (3, 1)))
+    out, runs = {}, {}
+    for case, cfg, B, reps in cases:
         env = CursorEnv(cfg, device=dev)
-        st = random_steps(env, reset(env, MAIN_B), 3, 1)
+        st = random_steps(env, reset(env, B), 3, 1)
         phys, n, P = env.physics, env.config.n_substeps, env._P
         args = (PartState(*(t.contiguous() for t in st.parts)), st.group.contiguous(),
-                torch.ones((MAIN_B, P), device=dev), n)
+                torch.ones((B, P), device=dev), n)
+        name = f"kernel 1 {case}, {cfg.furniture_name}"
         for m, tol in ((5, 1e-4), (n, 1e-3)):
-            held(f"kernel 1 {case}, n={m} B={MAIN_B}", hold_free(phys, *args[:3], m, tol, chaotic=True))
-        rec = time_kernel(lambda: phys.kernel_substeps(*args), lambda: phys.plain_substeps(*args), 10, 2)
+            held(f"{name}, n={m} B={B}", hold_free(phys, *args[:3], m, tol, chaotic=True))
+        rec = {"K": phys.K, "slots": phys.slots["KS"]}
+        rec |= time_kernel(lambda: phys.kernel_substeps(*args), lambda: phys.plain_substeps(*args), *reps)
         rec |= clock_stats(phys, phys.phase_clocks(*args), MEGA_PHASES, n, sm_count)
-        if case == "free":
+        if case != "welded":
             tables = sum(t.numel() * t.element_size() for t in phys._dev.values())
-            rec |= bound(phys.fp32_ops_per_env(n) * MAIN_B, MAIN_B * P * 4 * (15 + 13) + tables, watts)
+            rec |= bound(phys.fp32_ops_per_env(n) * B, B * P * 4 * (15 + 13) + tables, watts)
+        if case == "global_scratch" and phys.scratch_launches != phys.launches:
+            fail(f"{name}: {phys.scratch_launches} of {phys.launches} launches on the global-scratch route")
         rec["groups"] = st.group[0].tolist()
-        report(f"kernel 1 {case}, n={n} B={MAIN_B}", rec)
-        out[case] = rec
+        report(f"{name}, n={n} B={B}", rec)
+        out[case], runs[case] = rec, (phys, args)
+    turns = ("free", "global_scratch", "global_scratch", "free")
+    for case in turns:
+        ph, a = runs[case]
+        out[case].setdefault("ms_in_turns", []).append(cuda_ms(lambda: ph.kernel_substeps(*a), 5))
+    report("kernel 1 in turns, table_lack and " + SCRATCH_MODEL,
+           {case: out[case]["ms_in_turns"] for case in turns[:2]})
     return out
 
 

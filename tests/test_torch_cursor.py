@@ -9,7 +9,10 @@ substeps per control step), B = 4, on the CPU. State crosses as numpy
 * step: ``step_batch`` against JAX ``vmap(env.step)`` from that JAX reset,
   three steps of seeded uniform actions;
 * staged connect: the connect sequence of ``tests/test_cursor_env.py``
-  through both packages, groups and counts exact at every step.
+  through both packages, groups and counts exact at every step;
+* chair_balser_0115 at B = 2: the settle and three steps, as above, on a
+  model whose 4153 contact lanes kernel 1 keeps in its global scratch
+  buffer on the card.
 
 Discrete fields must match exactly and the reward within 1e-5. Part
 floats get 1e-3: f32 sums taken in another order feed thresholded contact
@@ -75,12 +78,10 @@ def envs():
     return jenv, tenv
 
 
-@pytest.fixture(scope="module")
-def jax_reset(envs):
-    """JAX reset_batch on the CPU, its settle run one jitted round at a
-    time (the same batched substeps, 10 rounds of 10): (sampled parts,
-    reset state)."""
-    jenv, _ = envs
+def _jax_reset(jenv, B):
+    """JAX reset_batch on the CPU for ``B`` envs, its settle run one jitted
+    round at a time (the same batched substeps, 10 rounds of 10): (sampled
+    parts, reset state)."""
     keys = jax.random.split(jax.random.PRNGKey(0), B)
     sampled = jax.jit(jax.vmap(jenv._sample_parts))(keys)
     P = jenv._P
@@ -109,6 +110,11 @@ def jax_reset(envs):
         jax.vmap(jenv._initial_state)(parts), keys
     )
     return sampled, state
+
+
+@pytest.fixture(scope="module")
+def jax_reset(envs):
+    return _jax_reset(envs[0], B)
 
 
 @pytest.fixture(scope="module")
@@ -171,3 +177,26 @@ def test_staged_connect_matches_jax(envs, jax_reset, jax_step):
     _compare(jd, td, "connected")
     assert td["num_connected"].tolist() == [1, 0, 1, 0]
     assert td["group"][0, 0] == td["group"][0, 4]
+
+
+def test_chair_balser_matches_jax():
+    """chair_balser_0115 (8 parts, 233 geom pairs, 4153 contact lanes, 24
+    connection sites) at B = 2: the settle from JAX's sampled placement,
+    then three steps of seeded uniform actions from JAX's reset, as on
+    table_lack."""
+    name, b = "chair_balser_0115", 2
+    jenv = JCursorEnv(JEnvConfig(furniture_name=name, sim=JSimConfig(control_freq=100)))
+    tenv = CursorEnv(EnvConfig(furniture_name=name, sim=SimConfig(control_freq=100)), device="cpu")
+    sampled, jstate = _jax_reset(jenv, b)
+    parts = PartState(*(torch.as_tensor(np.array(getattr(sampled, f))) for f in PART_FIELDS))
+    _compare(_to_np(jstate), cursor_state_to_numpy(tenv.reset_from_parts(parts)), "settle")
+    jax_step = jax.jit(jax.vmap(jenv.step))
+    tstate = cursor_state_from_numpy(_to_np(jstate), "cpu")
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        a = rng.uniform(-1.0, 1.0, (b, 15)).astype(np.float32)
+        jstate, _, jr, jd, _ = jax_step(jstate, jnp.asarray(a))
+        tstate, _, tr, td, _ = tenv.step_batch(tstate, torch.as_tensor(a))
+        _compare(_to_np(jstate), cursor_state_to_numpy(tstate), f"step {i}")
+        np.testing.assert_allclose(np.asarray(jr), tr.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(np.asarray(jd), td.numpy())

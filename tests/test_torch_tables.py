@@ -20,7 +20,7 @@ from furniture_tpu_torch.physics.megakernel import MegaPhysics
 
 torch.set_num_threads(1)
 
-MODELS = ["table_lack_0825", "chair_agne_0010", "toy_table"]
+MODELS = ["table_lack_0825", "chair_agne_0010", "toy_table", "chair_balser_0115"]
 
 
 def _eq(a, b, what):
