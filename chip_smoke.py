@@ -26,8 +26,8 @@ and the paths that no cell runs yet. It imports nothing of JAX.
    kernel 1 (``megakernel.cu``, n = 50) on table_lack at B = 4096 after a
    reset and 3 random steps, free and welded (two recipe steps
    preassembled), held by ``hold_free`` after 5 substeps (1e-4) and 50
-   (1e-3), and its global-scratch instance on chair_balser at B = 1024 (held
-   the same way), timed in turns with table_lack's; kernel
+   (1e-3), and its cluster route on chair_balser at B = 1024 (held the same
+   way; 3 CTAs an env), timed in turns with table_lack's; kernel
    2 (``arm_megakernel.cu``, n = 50) on Sawyer impedance at B = 512, held
    by ``hold_call`` (5e-4 after 5 substeps, 1e-3 after 50);
    kernel 3 (``lane_solver.cu``, 12 sweeps) on a lane
@@ -46,8 +46,10 @@ and the paths that no cell runs yet. It imports nothing of JAX.
    and at one block of 4 envs (its latency floor; latency-bound, so no
    bound is reported). For kernels 1-3 also the blocks an SM holds, the latency floor
    (the block barriers of a launch as the phase-clock build counts them x
-   a bare barrier's round trip at that occupancy x the waves of blocks) and
-   each phase's share of a block's clock;
+   a bare barrier's round trip at that occupancy x the waves of blocks; on
+   kernel 1's cluster route the clusters the card holds, and its cluster
+   barriers x a bare cluster barrier's round trip beside them) and each
+   phase's share of a block's clock;
 3. paths no cell runs: the lane path's step at B = 4096; Sawyer's
    ``position_orientation`` step at B = 512 and its ``_controller_prepare``;
    the scripted generator's step and policy decision at B = 128 (medians of
@@ -89,9 +91,9 @@ ARM_PHASES = ("joint update+chain+hand geoms | held clamp+frames+aggregates", "n
 LANE_PHASES = ("loads", "preparation+counts", "sweeps: lane half", "sweeps: group half")
 # kernel 3's two routes, timed in turns: one lane a thread, global scratch
 LANE_ROUTE_MODELS = ("table_lack_0825", "chair_balser_0115")
-# kernel 1's global-scratch route at its cell's model and batch
+# kernel 1's cluster route at its cell's model and batch
 # (chair_balser.random-b1024), timed in turns with table_lack's one lane a thread
-SCRATCH_MODEL, SCRATCH_B = "chair_balser_0115", 1024
+CLUSTER_MODEL, CLUSTER_B = "chair_balser_0115", 1024
 
 
 def fail(msg: str) -> None:
@@ -208,21 +210,41 @@ def clock_stats(obj, clocks, names, n: int, sm_count: int) -> dict:
     envs), the cycles a block spends on a substep, and the latency floor,
     the block barriers a block passed (the last column) x the measured round
     trip of a bare barrier with as many blocks of the kernel's size resident
-    on every SM as ``obj`` has x the waves the blocks come in."""
+    on every SM as ``obj`` has x the waves the blocks come in. On kernel 1's
+    cluster route (``obj.layout.route``) the waves are of the clusters the
+    card holds, and the floor adds the cluster barriers (column 6) x a bare
+    cluster barrier's round trip and the passes' exchanges (``n`` x the
+    solver's passes) x a bare exchange's round trip of as many group
+    partials as the model has parts (each free), both at that occupancy."""
     c = clocks[:, : len(names)].double()
     shares = (c / c.sum(-1, keepdim=True).clamp(min=1)).mean(0).tolist()
     counts = clocks[:, -1]
     barriers = int(counts[0])
     if barriers <= 0 or not bool((counts == barriers).all()):
         fail(f"the blocks of a launch counted different numbers of barriers ({counts.unique().tolist()})")
-    resident = obj.resident_blocks()
-    blocks, probe_n = resident * sm_count, 20000
+    resident, probe_n = obj.resident_blocks(), 20000
+    layout = getattr(obj, "layout", None)
+    cluster = layout is not None and layout.route == "cluster"
+    blocks = resident * (layout.cluster if cluster else sm_count)
     obj.barrier_probe(blocks, 100)  # warm-up
     trip_ms = cuda_ms(lambda: obj.barrier_probe(blocks, probe_n), 3) / probe_n
-    waves = -(-clocks.shape[0] // blocks)
-    return {"phase_shares": dict(zip(names, shares)), "cycles_a_substep": c.sum(-1).mean().item() / n,
-            "resident_blocks_per_sm": resident, "barriers_per_launch": barriers,
-            "barrier_us": trip_ms * 1e3, "latency_floor_ms": waves * barriers * trip_ms}
+    waves = -(-clocks.shape[0] // (resident if cluster else blocks))
+    out = {"phase_shares": dict(zip(names, shares)), "cycles_a_substep": c.sum(-1).mean().item() / n,
+           "resident_blocks_per_sm": resident, "barriers_per_launch": barriers,
+           "barrier_us": trip_ms * 1e3, "latency_floor_ms": waves * barriers * trip_ms}
+    if cluster:
+        cluster_barriers, exchanges = int(clocks[0, 6]), n * (obj.cfg.solver_iters + 1)
+        trips = {}
+        for groups in (0, obj.P):
+            obj.cluster_probe(resident, 100, groups)  # warm-up
+            trips[groups] = cuda_ms(lambda: obj.cluster_probe(resident, probe_n, groups), 3) / probe_n
+        del out["resident_blocks_per_sm"]
+        out |= {"resident_clusters": resident, "ctas_a_cluster": layout.cluster,
+                "cluster_barriers_per_launch": cluster_barriers, "cluster_barrier_us": trips[0] * 1e3,
+                "exchanges_per_launch": exchanges, "exchange_us": trips[obj.P] * 1e3,
+                "latency_floor_ms": waves * (barriers * trip_ms + cluster_barriers * trips[0]
+                                             + exchanges * trips[obj.P])}
+    return out
 
 
 def report(name: str, rec: dict, tag: str = "time") -> None:
@@ -353,8 +375,8 @@ def build() -> None:
 def kernel1(dev, watts: float, sm_count: int) -> dict:
     """Kernel 1 at n = 50, after a reset and 3 random steps, in three cases:
     table_lack at B = ``MAIN_B``, free parts and welded by two recipe steps
-    preassembled (one lane a thread), and ``SCRATCH_MODEL`` at B =
-    ``SCRATCH_B``, whose every launch must take the global-scratch route.
+    preassembled (one lane a thread), and ``CLUSTER_MODEL`` at B =
+    ``CLUSTER_B``, whose every launch must take the cluster route.
     Each is held by ``hold_free`` and timed with its plain version and phase
     shares, the free cases with their bound. Then the two free cases' ms a
     launch timed in turns (table_lack, chair, chair, table_lack) by CUDA
@@ -368,7 +390,7 @@ def kernel1(dev, watts: float, sm_count: int) -> dict:
 
     cases = (("free", EnvConfig(), MAIN_B, (10, 2)),
              ("welded", EnvConfig(preassembled=(0, 1)), MAIN_B, (10, 2)),
-             ("global_scratch", EnvConfig(furniture_name=SCRATCH_MODEL), SCRATCH_B, (3, 1)))
+             ("cluster", EnvConfig(furniture_name=CLUSTER_MODEL), CLUSTER_B, (3, 1)))
     out, runs = {}, {}
     for case, cfg, B, reps in cases:
         env = CursorEnv(cfg, device=dev)
@@ -385,16 +407,16 @@ def kernel1(dev, watts: float, sm_count: int) -> dict:
         if case != "welded":
             tables = sum(t.numel() * t.element_size() for t in phys._dev.values())
             rec |= bound(phys.fp32_ops_per_env(n) * B, B * P * 4 * (15 + 13) + tables, watts)
-        if case == "global_scratch" and phys.scratch_launches != phys.launches:
-            fail(f"{name}: {phys.scratch_launches} of {phys.launches} launches on the global-scratch route")
+        if case == "cluster" and phys.cluster_launches != phys.launches:
+            fail(f"{name}: {phys.cluster_launches} of {phys.launches} launches on the cluster route")
         rec["groups"] = st.group[0].tolist()
         report(f"{name}, n={n} B={B}", rec)
         out[case], runs[case] = rec, (phys, args)
-    turns = ("free", "global_scratch", "global_scratch", "free")
+    turns = ("free", "cluster", "cluster", "free")
     for case in turns:
         ph, a = runs[case]
         out[case].setdefault("ms_in_turns", []).append(cuda_ms(lambda: ph.kernel_substeps(*a), 5))
-    report("kernel 1 in turns, table_lack and " + SCRATCH_MODEL,
+    report("kernel 1 in turns, table_lack and " + CLUSTER_MODEL,
            {case: out[case]["ms_in_turns"] for case in turns[:2]})
     return out
 

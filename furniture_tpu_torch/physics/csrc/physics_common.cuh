@@ -24,8 +24,10 @@
 //     (REGS) the
 //     lane's whole working set (n, t1, t2, r_a, r_b, inv_w * scale, bias,
 //     friction, mask, lambda, its part indices) stays in registers for
-//     the substep; otherwise it lives field-major in shared memory or a
-//     global scratch buffer and the thread loops over its LPT lanes.
+//     the substep; otherwise it lives field-major in shared memory (the
+//     free-part kernel's largest models: the shared memories of a
+//     thread-block cluster, see megakernel.cu) or a global scratch buffer
+//     (the arm kernel) and the thread loops over its LPT lanes.
 //   * Deterministic sums. The a side is reduced with warp shuffles inside
 //     each segment, the six columns folded as they go (7 shuffles for 16
 //     lanes): one partial per (segment, column). The b side (pair and SAT
@@ -789,27 +791,29 @@ __device__ __forceinline__ void lane_prep(const Block& c, int pa, int pb, const 
   L.mask = fm ? 1.f : 0.f;
 }
 
-// ---- 3c. narrow phase and solver prep of all SAT lanes by one warp, where
-// the lanes live in memory. The SAT test is the longest straight-line code
+// ---- 3c. narrow phase and solver prep of the SAT lane in slot k (its lane
+// working set in memory), and of all SAT lanes by one warp, where the lanes
+// live in memory. The SAT test is the longest straight-line code
 // of a substep; a warp runs it whether one of its lanes is a SAT lane or ten
 // are, so the last warp takes them all and the others skip theirs. (With
 // one lane per thread the owner keeps its SAT lane: handing the prepared
 // fields over through a staging buffer cost more in spilled registers than
 // it saved, 15.2 ms against 13.0 ms a launch.)
+__device__ __forceinline__ void prepare_sat_lane(const Block& c, int k) {
+  const int pk = __ldg(c.slot_i + k).x;
+  LaneRegs L;
+  float lc[LC], point[3], nrm[3], depth;
+  bool fm;
+  load_lane_const(c, k, lc);
+  sat_lane_contact(c, pk_part_a(pk), pk_part_b(pk), lc, point, nrm, &depth, &fm);
+  lane_prep(c, pk_part_a(pk), pk_part_b(pk), point, nrm, depth, fm, lc, L);
+  store_lane_prep(c, k, L);
+}
+
 __device__ __forceinline__ void prepare_sat_lanes(const Block& c) {
   if (c.warp != c.nwarps - 1) return;
 #pragma unroll 1
-  for (int e = c.lane; e < c.Ke; e += 32) {
-    const int k = c.sat_slot[e];
-    const int pk = __ldg(c.slot_i + k).x;
-    LaneRegs L;
-    float lc[LC], point[3], nrm[3], depth;
-    bool fm;
-    load_lane_const(c, k, lc);
-    sat_lane_contact(c, pk_part_a(pk), pk_part_b(pk), lc, point, nrm, &depth, &fm);
-    lane_prep(c, pk_part_a(pk), pk_part_b(pk), point, nrm, depth, fm, lc, L);
-    store_lane_prep(c, k, L);
-  }
+  for (int e = c.lane; e < c.Ke; e += 32) prepare_sat_lane(c, c.sat_slot[e]);
 }
 
 // a dummy slot: it contributes nothing and is never updated
@@ -953,20 +957,94 @@ __device__ __forceinline__ void store_segment(const Block& c, float* acc, bool c
   }
 }
 
+// the tail of a group pass: group g's sums `acc` (impulse, torque, active-lane
+// count) give every member its velocity (and, with `count`, the count);
+// `last` goes on to the velocity clamp, the integration about the group COM
+// and the floor projection by the group's deepest corner. Run by the group's
+// warp.
+__device__ __forceinline__ void group_apply(const Block& c, int g, const float* acc, bool count,
+                                            bool last) {
+  const int lane = c.lane;
+  const int m0 = c.gl_off[g], m1 = c.gl_off[g + 1];
+#pragma unroll 1
+  for (int m = m0 + lane; m < m1; m += 32) {
+    const int q = c.gl_mem[m];
+    const float igm = SP(S_IGM, q);
+    float lv[3], av[3];
+    for (int d = 0; d < 3; ++d) {
+      lv[d] = SP(S_LIN + d, q) + acc[d] * igm;
+      av[d] = SP(S_ANG + d, q) + (SP(S_INVI + d * 3, q) * acc[3] +
+                                  SP(S_INVI + d * 3 + 1, q) * acc[4] +
+                                  SP(S_INVI + d * 3 + 2, q) * acc[5]);
+    }
+    if (count) SP(S_CNT, q) = acc[6];
+    if (!last) {
+      for (int d = 0; d < 3; ++d) {
+        SP(S_LV + d, q) = lv[d];
+        SP(S_AV + d, q) = av[d];
+      }
+    } else {
+      // velocity clamp, then integrate about the group COM
+      for (int d = 0; d < 3; ++d) {
+        lv[d] = fminf(fmaxf(lv[d], -c.maxv), c.maxv);
+        av[d] = fminf(fmaxf(av[d], -c.maxv), c.maxv);
+        SP(S_LIN + d, q) = lv[d];
+        SP(S_ANG + d, q) = av[d];
+      }
+      const float angle = sqrtf(av[0] * av[0] + av[1] * av[1] + av[2] * av[2] + 1e-18f);
+      const float ra_ = 1.f / angle;
+      float axis[3] = {av[0] * ra_, av[1] * ra_, av[2] * ra_};
+      const float rn = 1.f / sqrtf(axis[0] * axis[0] + axis[1] * axis[1] + axis[2] * axis[2] + 1e-24f);
+      const float half = (angle * c.dt) * 0.5f;
+      const float sh = sinf(half) * rn;
+      float dq[4] = {cosf(half), sh * axis[0], sh * axis[1], sh * axis[2]};
+      float rel[3], rr[3];
+      for (int d = 0; d < 3; ++d) rel[d] = SP(S_POS + d, q) - SP(S_GCOM + d, q);
+      qrot(dq, rel, rr);
+      for (int d = 0; d < 3; ++d) SP(S_POS + d, q) = SP(S_GCOM + d, q) + rr[d] + lv[d] * c.dt;
+      float qq[4] = {SP(S_QUAT, q), SP(S_QUAT + 1, q), SP(S_QUAT + 2, q), SP(S_QUAT + 3, q)}, nq[4];
+      qmul(dq, qq, nq);
+      const float rq = 1.f / fmaxf(sqrtf(nq[0] * nq[0] + nq[1] * nq[1] + nq[2] * nq[2] + nq[3] * nq[3]), 1e-12f);
+      for (int d = 0; d < 4; ++d) SP(S_QUAT + d, q) = nq[d] * rq;
+    }
+  }
+  if (last) {
+    // floor projection: lift the group by its deepest floor corner
+    __syncwarp();
+    float pen = 0.f;
+#pragma unroll 1
+    for (int m = m0; m < m1; ++m) {
+      const int q = c.gl_mem[m];
+      float qq[4] = {SP(S_QUAT, q), SP(S_QUAT + 1, q), SP(S_QUAT + 2, q), SP(S_QUAT + 3, q)};
+      const float z = SP(S_POS + 2, q);
+#pragma unroll 1
+      for (int e = c.floor_off[q] + lane; e < c.floor_off[q + 1]; e += 32) {
+        float cn[3] = {c.floor_cn[3 * e], c.floor_cn[3 * e + 1], c.floor_cn[3 * e + 2]}, rc[3];
+        qrot(qq, cn, rc);
+        const float d = -(z + rc[2]);
+        pen = fmaxf(pen, fmaxf(d > -c.slop ? d - c.slop : 0.f, 0.f));
+      }
+    }
+    pen = warp_max(pen);
+    __syncwarp();
+#pragma unroll 1
+    for (int m = m0 + lane; m < m1; m += 32) SP(S_POS + 2, c.gl_mem[m]) += pen;
+    __syncwarp();
+  }
+}
+
 // ---- 7c. the group pass: one warp per rigid group adds the a-side partials
 // and the b-side entries of all the group's members, once, and gives every
 // member its velocity (and, with `count`, the group's active-lane count).
 // The group's entries are listed once a launch (gl_ent) and 8 columns wide: lane (chunk, column) of the warp adds
 // column `column` of every fourth entry, two shuffles finish the sums, in a
-// fixed order. `last` goes on to the velocity clamp, the integration about
-// the group COM and the floor projection by the group's deepest corner.
+// fixed order; group_apply does the rest.
 __device__ __forceinline__ void group_pass(const Block& c, bool count, bool last) {
   const int lane = c.lane;
   const int col = lane & (NCOL - 1), chunk = lane / NCOL;
   constexpr int CHUNKS = 32 / NCOL;
 #pragma unroll 1
   for (int g = c.warp; g < c.ngroups; g += c.nwarps) {
-    const int m0 = c.gl_off[g], m1 = c.gl_off[g + 1];
     const int e1 = c.gl_eoff[g + 1];
     const int b_first = c.NSEG * NCOL;
     const float* b_base = c.bbuf - b_first;
@@ -981,71 +1059,7 @@ __device__ __forceinline__ void group_pass(const Block& c, bool count, bool last
     float acc[7];
 #pragma unroll
     for (int k = 0; k < 7; ++k) acc[k] = __shfl_sync(0xffffffffu, s, k);
-#pragma unroll 1
-    for (int m = m0 + lane; m < m1; m += 32) {
-      const int q = c.gl_mem[m];
-      const float igm = SP(S_IGM, q);
-      float lv[3], av[3];
-      for (int d = 0; d < 3; ++d) {
-        lv[d] = SP(S_LIN + d, q) + acc[d] * igm;
-        av[d] = SP(S_ANG + d, q) + (SP(S_INVI + d * 3, q) * acc[3] +
-                                    SP(S_INVI + d * 3 + 1, q) * acc[4] +
-                                    SP(S_INVI + d * 3 + 2, q) * acc[5]);
-      }
-      if (count) SP(S_CNT, q) = acc[6];
-      if (!last) {
-        for (int d = 0; d < 3; ++d) {
-          SP(S_LV + d, q) = lv[d];
-          SP(S_AV + d, q) = av[d];
-        }
-      } else {
-        // velocity clamp, then integrate about the group COM
-        for (int d = 0; d < 3; ++d) {
-          lv[d] = fminf(fmaxf(lv[d], -c.maxv), c.maxv);
-          av[d] = fminf(fmaxf(av[d], -c.maxv), c.maxv);
-          SP(S_LIN + d, q) = lv[d];
-          SP(S_ANG + d, q) = av[d];
-        }
-        const float angle = sqrtf(av[0] * av[0] + av[1] * av[1] + av[2] * av[2] + 1e-18f);
-        const float ra_ = 1.f / angle;
-        float axis[3] = {av[0] * ra_, av[1] * ra_, av[2] * ra_};
-        const float rn = 1.f / sqrtf(axis[0] * axis[0] + axis[1] * axis[1] + axis[2] * axis[2] + 1e-24f);
-        const float half = (angle * c.dt) * 0.5f;
-        const float sh = sinf(half) * rn;
-        float dq[4] = {cosf(half), sh * axis[0], sh * axis[1], sh * axis[2]};
-        float rel[3], rr[3];
-        for (int d = 0; d < 3; ++d) rel[d] = SP(S_POS + d, q) - SP(S_GCOM + d, q);
-        qrot(dq, rel, rr);
-        for (int d = 0; d < 3; ++d) SP(S_POS + d, q) = SP(S_GCOM + d, q) + rr[d] + lv[d] * c.dt;
-        float qq[4] = {SP(S_QUAT, q), SP(S_QUAT + 1, q), SP(S_QUAT + 2, q), SP(S_QUAT + 3, q)}, nq[4];
-        qmul(dq, qq, nq);
-        const float rq = 1.f / fmaxf(sqrtf(nq[0] * nq[0] + nq[1] * nq[1] + nq[2] * nq[2] + nq[3] * nq[3]), 1e-12f);
-        for (int d = 0; d < 4; ++d) SP(S_QUAT + d, q) = nq[d] * rq;
-      }
-    }
-    if (last) {
-      // floor projection: lift the group by its deepest floor corner
-      __syncwarp();
-      float pen = 0.f;
-#pragma unroll 1
-      for (int m = m0; m < m1; ++m) {
-        const int q = c.gl_mem[m];
-        float qq[4] = {SP(S_QUAT, q), SP(S_QUAT + 1, q), SP(S_QUAT + 2, q), SP(S_QUAT + 3, q)};
-        const float z = SP(S_POS + 2, q);
-#pragma unroll 1
-        for (int e = c.floor_off[q] + lane; e < c.floor_off[q + 1]; e += 32) {
-          float cn[3] = {c.floor_cn[3 * e], c.floor_cn[3 * e + 1], c.floor_cn[3 * e + 2]}, rc[3];
-          qrot(qq, cn, rc);
-          const float d = -(z + rc[2]);
-          pen = fmaxf(pen, fmaxf(d > -c.slop ? d - c.slop : 0.f, 0.f));
-        }
-      }
-      pen = warp_max(pen);
-      __syncwarp();
-#pragma unroll 1
-      for (int m = m0 + lane; m < m1; m += 32) SP(S_POS + 2, c.gl_mem[m]) += pen;
-      __syncwarp();
-    }
+    group_apply(c, g, acc, count, last);
   }
 }
 

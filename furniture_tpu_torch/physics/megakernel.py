@@ -15,15 +15,19 @@ that existed only for the TPU's matrix unit) and wraps the launch:
   tensors. There is no fallback: any other device, or a kernel that fails
   to build or launch, raises.
 * ``launches`` counts kernel launches, and nothing else;
-  ``scratch_launches`` counts those of them that kept the lane working set
-  in the global scratch buffer (the model's working set over the shared
-  memory a block may have), so a caller can tell which route a model ran.
+  ``cluster_launches`` counts those of them that took the cluster route
+  (the model's working set over the shared memory a block may have, spread
+  over the shared memories of a thread-block cluster), so a caller can tell
+  which route a model ran. ``layout`` says which route this model takes
+  (:class:`KernelLayout`), from the model's bytes alone.
 
 The kernel reads its lanes in *slot* order (:func:`slot_tables`): the lanes
 sorted by their a-side part and dealt to the threads so that the lanes of a
 segment of a warp share that part, padded with masked dummy slots. The
 tables in lane order (``lane_const``, ``part_a``, ``part_ent`` ...) stay as
-the description of the model; the permutation is built once, here.
+the description of the model; the permutation is built once, here, and for
+the cluster route once more over the cluster's threads
+(:func:`cluster_tables`).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,6 +50,13 @@ THREADS = 256
 SEGMENT = 16   # csrc/megakernel.cu SEGW: threads of a warp that share a part
 # dynamic shared memory a block may opt into on Hopper (227 KB)
 MAX_SMEM = 232448
+# the cluster route (csrc/megakernel.cu): threads a CTA, CTAs an env at most
+CLUSTER_THREADS = 512
+MAX_CLUSTER = 8
+# csrc/physics_common.cuh: floats a part (PF), a partial sum or b entry (NCOL),
+# a lane in memory (NF; NF_REGS with the rest in registers)
+PART_FIELDS, SUM_COLUMNS, LANE_FLOATS, LANE_FLOATS_REGS = 60, 8, 24, 1
+ROUTE_REGS, ROUTE_SMEM, ROUTE_CLUSTER = "regs", "smem", "cluster"
 
 # lane kinds (csrc/physics_common.cuh LaneKind)
 KIND_PAD, KIND_FLOOR, KIND_VERTEX, KIND_SAT, KIND_ROBOT1, KIND_ROBOT2 = range(6)
@@ -69,29 +81,32 @@ def library(defines=()) -> ctypes.CDLL:
     if defines not in _libs:
         lib = _cuda.load(SOURCE, defines)
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mega_substeps.argtypes = (
-            [vp] * 20 + [i] * 9 + [f] * 5 + [i, i, i, vp]
-        )
+        lib.mega_substeps.argtypes = [vp] * 19 + [i] * 9 + [f] * 5 + [i, i, i, vp]
         lib.mega_substeps.restype = i
+        lib.mega_cluster_substeps.argtypes = [vp] * 21 + [i] * 11 + [f] * 5 + [i, i, vp]
+        lib.mega_cluster_substeps.restype = i
         lib.mega_error_string.argtypes = [i]
         lib.mega_error_string.restype = ctypes.c_char_p
-        for fn in ("mega_lane_const_cols", "mega_segment_width",
-                   "mega_sum_columns", "mega_num_phases"):
+        for fn in ("mega_lane_const_cols", "mega_segment_width", "mega_sum_columns",
+                   "mega_part_fields", "mega_num_phases", "mega_max_b_entries",
+                   "mega_max_cluster", "mega_cluster_threads"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i
         lib.mega_lane_floats.argtypes = [i]
         lib.mega_lane_floats.restype = i
-        lib.mega_max_b_entries.argtypes = []
-        lib.mega_max_b_entries.restype = i
-        lib.mega_fixed_words.argtypes = [i] * 7
-        lib.mega_fixed_words.restype = i
-        lib.mega_resident_blocks.argtypes = [i] * 4
+        lib.mega_resident_blocks.argtypes = [i] * 3
         lib.mega_resident_blocks.restype = i
+        lib.mega_cluster_resident.argtypes = [i] * 3
+        lib.mega_cluster_resident.restype = i
         lib.mega_barrier_probe.argtypes = [i, i, i, i, vp]
         lib.mega_barrier_probe.restype = i
-        if (lib.mega_lane_const_cols(), lib.mega_segment_width(), lib.mega_max_b_entries()) != (
-            LANE_CONST_COLS, SEGMENT, MAX_B_ENTRIES
-        ):
+        lib.mega_cluster_probe.argtypes = [i] * 6 + [vp]
+        lib.mega_cluster_probe.restype = i
+        got = (lib.mega_lane_const_cols(), lib.mega_segment_width(), lib.mega_max_b_entries(),
+               lib.mega_part_fields(), lib.mega_sum_columns(), lib.mega_lane_floats(0),
+               lib.mega_lane_floats(1), lib.mega_max_cluster(), lib.mega_cluster_threads())
+        if got != (LANE_CONST_COLS, SEGMENT, MAX_B_ENTRIES, PART_FIELDS, SUM_COLUMNS,
+                   LANE_FLOATS, LANE_FLOATS_REGS, MAX_CLUSTER, CLUSTER_THREADS):
             raise RuntimeError("megakernel.cu slot layout changed")
         _libs[defines] = lib
     return _libs[defines]
@@ -259,6 +274,155 @@ def slot_tables(part_a, part_b, kind, lane_const, aux0, aux1, n_floor, n_sat, P,
     )
 
 
+def _align4(words: int) -> int:
+    return (words + 3) & ~3
+
+
+def group_words(P: int, nseg: int, nbs: int) -> int:
+    """Words of a block's group labels and lists (csrc/physics_common.cuh
+    ``group_words``): labels, first members, offsets, members, count, entry
+    offsets, and one entry a segment partial or b entry."""
+    return _align4(5 * P + 3 + nseg + nbs)
+
+
+def block_words(P: int, Kf: int, Ke: int, KS: int, NBS: int, regs: bool,
+                threads: int = THREADS) -> int:
+    """Words of dynamic shared memory the one-block kernel takes (the
+    launcher in csrc/megakernel.cu refuses fewer): part fields, group lists,
+    segment partials, the staged tables (``TableLayout``), the b buffer and
+    the lanes' working set (only their masks with one lane a thread)."""
+    nseg = threads // SEGMENT
+    tables = _align4(3 * (P + 1) + 17 * Ke + (0 if regs else KS) + 3 * Kf)
+    return (PART_FIELDS * P + group_words(P, nseg, NBS) + SUM_COLUMNS * nseg + tables
+            + SUM_COLUMNS * NBS + (LANE_FLOATS_REGS if regs else LANE_FLOATS) * KS)
+
+
+def cluster_words(P: int, Kf: int, KS: int, nseg: int, NBS: int, NJ: int, C: int) -> int:
+    """Words of dynamic shared memory a CTA of the cluster route takes
+    (csrc/megakernel.cu ``ClusterLayout``): part fields, the exchange's two
+    mbarriers, group lists over the jobs, the double-buffered group partials
+    of the cluster's ``C`` CTAs, the job results and their live entries, the
+    staged tables (slot words, jobs, floor corners), the CTA's segment
+    partials and b entries and its lanes' working set."""
+    words = (PART_FIELDS * P + 4 + group_words(P, NJ, 0) + 2 * C * SUM_COLUMNS * P
+             + SUM_COLUMNS * NJ + NJ + KS + NJ + 3 * (P + 1) + 3 * Kf)
+    return _align4(words) + SUM_COLUMNS * (nseg + NBS) + LANE_FLOATS * KS
+
+
+def _jobs(ranges, octets: int) -> tuple:
+    """Split ``ranges`` (per part, a list of ``(first entry, count)``) into
+    jobs of at most ``J`` entries, the least odd ``J`` that gives no more jobs
+    than ``octets`` (or one a range, if there are more ranges): ``(jobs
+    packed as first | count << 16, each part's range of jobs [P+1])``. The
+    four octets of a warp take four jobs in a row; an odd ``J`` puts their
+    entries (8 words each) on different banks of shared memory."""
+    total = sum(n for part in ranges for _, n in part)
+    J = max(1, -(-total // octets)) | 1
+    count = lambda J: sum(-(-n // J) for part in ranges for _, n in part)
+    while count(J) > octets and J < total:
+        J += 2
+    jobs, off = [], [0]
+    for part in ranges:
+        for first, n in part:
+            for j in range(0, n, J):
+                jobs.append((first + j) | (min(J, n - j) << 16))
+        off.append(len(jobs))
+    return jobs, off
+
+
+def cluster_tables(part_a, part_b, kind, lane_const, aux0, aux1, n_floor, n_sat, P,
+                   threads: int, C: int, segw: int) -> dict:
+    """The tables of the cluster route: the lanes laid out as
+    :func:`slot_tables` lays them for one block of ``C * threads`` threads,
+    CTA ``r`` of the cluster taking its slots ``[r KS, (r+1) KS)`` (``KS`` =
+    ``threads * lpt`` a CTA) and its segments ``[r NSEG, (r+1) NSEG)``
+    (``NSEG = threads // segw``), with the b sides of those lanes.
+
+    Returns slot_tables' ``lpt``, ``lane_of_slot``, ``slot_of_lane``,
+    ``seg_off``, ``slot_const``, ``floor_off`` and ``floor_slot`` (over the
+    env's ``C * KS`` slots), and: ``C``, ``KS`` (a CTA's slots); ``slot_i``
+    whose packed words carry each lane's index in its CTA's own b buffer
+    (the CTA's lanes with a b side, by b-side part; ``b_off`` [C,P+1] each
+    part's range there, ``NBS`` the most entries of any CTA); ``sat_corner``
+    [Ke,16] the corner lanes of each SAT lane as ``rank << 16 | slot in its
+    CTA``; ``sat_off`` [C+1] and ``sat_list`` the SAT lanes' slots in their
+    CTA, CTA by CTA; ``jobs`` [C,NJ] and ``job_off`` [C,P+1]: each CTA's
+    entries (its segment partials ``0..NSEG-1``, then its b entries from
+    ``NSEG`` on) cut into runs of one part each, of about equal length, no
+    more than ``threads // 8`` a CTA where it can (packed ``first | count <<
+    16``), ordered by part, each part's range of them."""
+    part_a = np.asarray(part_a, int)
+    part_b = np.asarray(part_b, int)
+    kind = np.asarray(kind, int)
+    K = len(part_a)
+    sl = slot_tables(part_a, part_b, kind, lane_const, aux0, aux1, n_floor, n_sat, P,
+                     threads * C, segw)
+    KS, nseg = threads * sl["lpt"], threads // segw
+    lane_of_slot = sl["lane_of_slot"]
+    used = np.flatnonzero(lane_of_slot >= 0)
+    rank = np.empty(K, int)
+    rank[lane_of_slot[used]] = used // KS
+    local_b = np.full(K, -1)
+    b_off = np.zeros((C, P + 1), np.int32)
+    for r in range(C):
+        lanes = np.flatnonzero((part_b >= 0) & (rank == r))
+        lanes = lanes[np.argsort(part_b[lanes], kind="stable")]
+        local_b[lanes] = np.arange(len(lanes))
+        b_off[r, 1:] = np.cumsum(np.bincount(part_b[lanes], minlength=P))
+    NBS = int(b_off[:, -1].max())
+    if NBS > MAX_B_ENTRIES:
+        raise ValueError(f"{NBS} lanes with a b side in a CTA, the kernel indexes {MAX_B_ENTRIES}")
+    slot_i = sl["slot_i"].copy()
+    slot_i[used, 0] = [
+        pack_slot(part_a[k], part_b[k], kind[k], local_b[k]) for k in lane_of_slot[used]
+    ]
+    sat_slots = np.sort(sl["slot_of_lane"][kind == KIND_SAT])
+    sat_off = np.searchsorted(sat_slots // KS, np.arange(C + 1)).astype(np.int32)
+    corner = sl["sat_corner"]
+    seg_off = sl["seg_off"]
+    jobs, job_off = [], []
+    for r in range(C):
+        ranges = []
+        for q in range(P):
+            s0, s1 = (int(np.clip(seg_off[x] - r * nseg, 0, nseg)) for x in (q, q + 1))
+            ranges.append([(s0, s1 - s0), (nseg + int(b_off[r, q]), int(b_off[r, q + 1] - b_off[r, q]))])
+        j, o = _jobs(ranges, threads // SUM_COLUMNS)
+        jobs.append(j)
+        job_off.append(o)
+    NJ = max(len(j) for j in jobs)
+    return dict(
+        lpt=sl["lpt"], C=C, KS=KS, NBS=NBS, NJ=NJ, lane_of_slot=lane_of_slot,
+        slot_of_lane=sl["slot_of_lane"], seg_off=seg_off, b_off=b_off,
+        slot_const=sl["slot_const"], slot_i=slot_i, floor_off=sl["floor_off"],
+        floor_slot=sl["floor_slot"],
+        sat_corner=(((corner // KS) << 16) | (corner % KS)).astype(np.int32),
+        sat_off=sat_off, sat_list=(sat_slots % KS).astype(np.int32),
+        jobs=np.array([j + [0] * (NJ - len(j)) for j in jobs], np.int32),
+        job_off=np.asarray(job_off, np.int32),
+    )
+
+
+class KernelLayout(NamedTuple):
+    """How kernel 1 runs a model: ``route`` (``ROUTE_REGS``: one lane a
+    thread, its working set in registers; ``ROUTE_SMEM``: lanes looped over,
+    their working set in a block's shared memory; ``ROUTE_CLUSTER``: one env
+    on a thread-block cluster whose CTAs' shared memories share the working
+    set), ``threads`` a block (a CTA), ``cluster`` CTAs an env (1 but on the
+    cluster route) and ``smem`` dynamic shared bytes a block."""
+
+    route: str
+    threads: int
+    cluster: int
+    smem: int
+
+
+# tables of the cluster route handed to the kernel, beside part_const
+CLUSTER_TABLES = (
+    "slot_const", "slot_i", "floor_off", "floor_slot", "sat_corner", "sat_off", "sat_list",
+    "jobs", "job_off",
+)
+
+
 def check_inputs(want: dict, dev) -> None:
     """Raise unless every ``name: (tensor, shape, dtype)`` is a contiguous
     CUDA tensor of that shape and dtype on ``dev``."""
@@ -284,7 +448,7 @@ class MegaPhysics:
             # tensors report a concrete index; compare against the same
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.launches = 0
-        self.scratch_launches = 0
+        self.cluster_launches = 0
 
         gp = np.asarray(model_np["geom_part"])
         G = len(gp)
@@ -402,15 +566,19 @@ class MegaPhysics:
             np.full(self.Kf, KIND_FLOOR), np.full(self.Kp, KIND_VERTEX),
             np.full(self.Ke, KIND_SAT),
         ])
+        self._aux0 = np.concatenate([np.zeros(self.Kf + self.Kp, int), np.arange(self.Ke)])
         self.slots = slot_tables(
-            self.part_a, self.part_b, self.lane_kind, lc,
-            np.concatenate([np.zeros(self.Kf + self.Kp, int), np.arange(self.Ke)]),
+            self.part_a, self.part_b, self.lane_kind, lc, self._aux0,
             np.zeros(self.K, int), self.Kf, self.Ke, P, THREADS, SEGMENT,
         )
+        self.cluster = None   # the cluster route's tables (cluster_tables), if it takes it
+        self.layout = self._choose_layout()
+        tables = SLOT_TABLES if self.cluster is None else CLUSTER_TABLES
+        source = self.slots if self.cluster is None else self.cluster
         self._dev = {"part_const": torch.as_tensor(pc, device=self.device)}
         self._dev.update(
-            (name, torch.as_tensor(self.slots[name], device=self.device).contiguous())
-            for name in SLOT_TABLES
+            (name, torch.as_tensor(source[name], device=self.device).contiguous())
+            for name in tables
         )
         # the plain version of *this* kernel: warm-started in every mode
         self._plain = make_substep(
@@ -433,28 +601,42 @@ class MegaPhysics:
             return self.plain_substeps(parts, group, gscale, n)
         raise RuntimeError(f"no free-part physics for device {parts.pos.device}")
 
-    def lane_buffer(self):
-        """How the kernel holds this model: ``(floats per lane kept in memory,
-        dynamic shared bytes a block, working set in shared memory?, one lane
-        per thread with its working set in registers?)``."""
-        lib = library()
-        regs = self.slots["lpt"] == 1
-        nf, ncol = lib.mega_lane_floats(int(regs)), lib.mega_sum_columns()
-        fixed = 4 * lib.mega_fixed_words(
-            self.P, self.Kf, self.Ke, self.slots["KS"], int(self.slots["b_off"][-1]),
-            int(regs), THREADS,
-        )
-        lane_bytes = 4 * self._scratch_floats(nf, ncol)
-        in_smem = fixed + lane_bytes <= MAX_SMEM
-        return nf, fixed + (lane_bytes if in_smem else 0), in_smem, regs
+    def _choose_layout(self) -> KernelLayout:
+        """The route from the model's bytes (nothing else decides it): one lane
+        a thread where the lanes fit the block's threads; else the lanes'
+        working set in the block's shared memory where it fits
+        ``MAX_SMEM``; else the cluster route on the fewest CTAs (2 to
+        ``MAX_CLUSTER``) whose share of the working set fits each CTA
+        (sets ``self.cluster``)."""
+        sl = self.slots
+        regs = sl["lpt"] == 1
+        smem = 4 * block_words(self.P, self.Kf, self.Ke, sl["KS"], int(sl["b_off"][-1]), regs)
+        if regs or smem <= MAX_SMEM:
+            return KernelLayout(ROUTE_REGS if regs else ROUTE_SMEM, THREADS, 1, smem)
+        for C in range(2, MAX_CLUSTER + 1):
+            ct = cluster_tables(
+                self.part_a, self.part_b, self.lane_kind, self.lane_const, self._aux0,
+                np.zeros(self.K, int), self.Kf, self.Ke, self.P, CLUSTER_THREADS, C, SEGMENT,
+            )
+            smem = 4 * cluster_words(self.P, self.Kf, ct["KS"], CLUSTER_THREADS // SEGMENT,
+                                     ct["NBS"], ct["NJ"], C)
+            if smem <= MAX_SMEM:
+                self.cluster = ct
+                return KernelLayout(ROUTE_CLUSTER, CLUSTER_THREADS, C, smem)
+        raise ValueError(f"model's lanes ({self.K}) do not fit a cluster of {MAX_CLUSTER} CTAs")
 
     # -- what the latency floor is worked out from ------------------------------
 
     def resident_blocks(self) -> int:
-        """Blocks of the kernel an SM holds for this model (from the
-        registers, the block size and the shared memory of the build)."""
-        _, smem, in_smem, regs = self.lane_buffer()
-        n = library().mega_resident_blocks(int(regs), int(not in_smem), THREADS, smem)
+        """Blocks of the one-block kernel an SM holds for this model (from the
+        registers, the block size and the shared memory of the build); on the
+        cluster route, the clusters the card holds at once."""
+        lay = self.layout
+        lib = library()
+        if lay.route == ROUTE_CLUSTER:
+            n = lib.mega_cluster_resident(lay.cluster, lay.threads, lay.smem)
+        else:
+            n = lib.mega_resident_blocks(int(lay.route == ROUTE_REGS), lay.threads, lay.smem)
         if n <= 0:
             raise RuntimeError("the occupancy query of megakernel.cu failed")
         return n
@@ -463,38 +645,46 @@ class MegaPhysics:
         """Launch ``blocks`` blocks of the kernel's size and shared memory
         that pass ``n`` bare block barriers: timed, a launch over ``n`` is a
         barrier's round trip at that occupancy. Not counted in ``launches``."""
-        smem = self.lane_buffer()[1]
+        self._probe(lambda lib, stream: lib.mega_barrier_probe(
+            int(blocks), self.layout.threads, self.layout.smem, int(n), stream))
+
+    def cluster_probe(self, clusters: int, n: int, groups: int = 0) -> None:
+        """Launch ``clusters`` clusters of the cluster route's shape (the
+        cluster route only) that pass ``n`` bare cluster barriers, or with
+        ``groups`` make ``n`` exchanges of that many group partials, a pass's
+        exchange and nothing else: timed, a launch over ``n`` is one's round
+        trip at that occupancy. Not counted in ``launches``."""
+        lay = self.layout
+        self._probe(lambda lib, stream: lib.mega_cluster_probe(
+            int(clusters), lay.cluster, lay.threads, lay.smem, int(n), int(groups), stream))
+
+    def _probe(self, launch) -> None:
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            err = library().mega_barrier_probe(int(blocks), THREADS, smem, int(n),
-                                               ctypes.c_void_p(stream))
+            err = launch(library(), ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError("barrier probe failed: " + library().mega_error_string(err).decode())
 
-    def _scratch_floats(self, nf: int, ncol: int) -> int:
-        """Floats of an env's b-side buffer and lane working set."""
-        return ncol * int(self.slots["b_off"][-1]) + nf * self.slots["KS"]
-
     def kernel_substeps(self, parts: PartState, group, gscale, n: int) -> PartState:
         """One launch of the CUDA kernel; raises on anything it cannot take."""
-        out, _, in_smem = self._launch((), parts, group, gscale, n)
+        out, _ = self._launch((), parts, group, gscale, n)
         self.launches += 1
-        self.scratch_launches += int(not in_smem)
+        self.cluster_launches += int(self.cluster is not None)
         return out
 
     def phase_clocks(self, parts: PartState, group, gscale, n: int):
         """Clock cycles per phase of the substep loop, ``[B, phases]`` int64:
         one launch of the phase-clock build of the kernel (the same source
-        with ``-DFT_PHASE_CLOCKS``), in which thread 0 of each block adds up
-        the card's clock between barriers and, in the last column, counts
-        the block barriers the loop passed. A measuring aid: its results are
-        not used and it is not counted in ``launches``."""
+        with ``-DFT_PHASE_CLOCKS``), in which thread 0 of each block (of
+        CTA 0 of each cluster) adds up the card's clock between barriers and,
+        in the last column, counts the block barriers the loop passed (on the
+        cluster route column 6 counts its cluster barriers). A measuring aid:
+        its results are not used and it is not counted in ``launches``."""
         return self._launch(_cuda.PHASE_CLOCKS, parts, group, gscale, n)[1]
 
     def _launch(self, defines, parts: PartState, group, gscale, n: int):
         """Check the inputs, then launch the build of the kernel with
-        ``defines``: ``(result, phase clocks or None, working set in shared
-        memory?)``."""
+        ``defines``: ``(result, phase clocks or None)``."""
         B, P = parts.pos.shape[:2]
         dev = parts.pos.device
         want = {
@@ -514,40 +704,41 @@ class MegaPhysics:
         clocks = None
         if defines == _cuda.PHASE_CLOCKS:
             clocks = torch.zeros((B, lib.mega_num_phases()), dtype=torch.int64, device=dev)
-        nf, smem, in_smem, regs = self.lane_buffer()
         out = PartState(
             pos=torch.empty_like(parts.pos),
             quat=torch.empty_like(parts.quat),
             lin_vel=torch.empty_like(parts.lin_vel),
             ang_vel=torch.empty_like(parts.ang_vel),
         )
-        scratch = None if in_smem else torch.empty(
-            (B, self._scratch_floats(nf, lib.mega_sum_columns())), dtype=torch.float32,
-            device=dev,
-        )
-        d = self._dev
-        sl = self.slots
-        cfg = self.cfg
+        d, cfg, lay = self._dev, self.cfg, self.layout
         ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+        state = [ptr(parts.pos), ptr(parts.quat), ptr(parts.lin_vel), ptr(parts.ang_vel),
+                 ptr(group), ptr(gscale), ptr(out.pos), ptr(out.quat), ptr(out.lin_vel),
+                 ptr(out.ang_vel), ptr(d["part_const"])]
+        sim = [int(n), int(cfg.solver_iters), float(cfg.timestep),
+               float(cfg.timestep * cfg.gravity), float(cfg.contact_slop),
+               float(cfg.relaxation), float(cfg.max_velocity)]
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.mega_substeps(
-                ptr(parts.pos), ptr(parts.quat), ptr(parts.lin_vel), ptr(parts.ang_vel),
-                ptr(group), ptr(gscale),
-                ptr(out.pos), ptr(out.quat), ptr(out.lin_vel), ptr(out.ang_vel),
-                ptr(d["part_const"]), *(ptr(d[name]) for name in SLOT_TABLES),
-                ptr(scratch), ptr(clocks),
-                B, P, sl["KS"], sl["lpt"], int(sl["b_off"][-1]), self.Kf, self.Ke,
-                int(n), int(cfg.solver_iters),
-                float(cfg.timestep), float(cfg.timestep * cfg.gravity),
-                float(cfg.contact_slop), float(cfg.relaxation), float(cfg.max_velocity),
-                THREADS, smem, int(regs), ctypes.c_void_p(stream),
-            )
+            stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+            if self.cluster is None:
+                sl = self.slots
+                err = lib.mega_substeps(
+                    *state, *(ptr(d[name]) for name in SLOT_TABLES), ptr(clocks),
+                    B, P, sl["KS"], sl["lpt"], int(sl["b_off"][-1]), self.Kf, self.Ke, *sim,
+                    lay.threads, lay.smem, int(lay.route == ROUTE_REGS), stream,
+                )
+            else:
+                ct = self.cluster
+                err = lib.mega_cluster_substeps(
+                    *state, *(ptr(d[name]) for name in CLUSTER_TABLES), ptr(clocks),
+                    B, P, ct["KS"], ct["lpt"], self.Kf, self.Ke, ct["NBS"], ct["NJ"], ct["C"],
+                    *sim, lay.threads, lay.smem, stream,
+                )
         if err != 0:
             raise RuntimeError(
                 "megakernel launch failed: " + lib.mega_error_string(err).decode()
             )
-        return out, clocks, in_smem
+        return out, clocks
 
     # -- work model (for the roofline bound) -----------------------------------
 

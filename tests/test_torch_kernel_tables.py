@@ -4,10 +4,14 @@ The CUDA kernels (``csrc/megakernel.cu``, ``csrc/arm_megakernel.cu``) read
 their lanes in slot order: sorted by a-side part and dealt to the block's
 threads so that the lanes of a segment of a warp share that part, with
 masked dummy slots as padding. The permutation is built once, in
-``megakernel.slot_tables``; these tests hold it against the tables in lane
-order on the CPU (numpy only, nothing compiled), and check that the plain
-versions, which read the lane-order tables, are untouched by it.
+``megakernel.slot_tables`` (over a thread-block cluster's CTAs in
+``megakernel.cluster_tables``); these tests hold it against the tables in
+lane order on the CPU (numpy only, nothing compiled), check kernel 1's route
+for every model, and check that the plain versions, which read the
+lane-order tables, are untouched by it.
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -16,8 +20,11 @@ import torch
 from furniture_tpu_torch.config import EnvConfig, SimConfig
 from furniture_tpu_torch.envs.arm import ArmEnv
 from furniture_tpu_torch.envs.cursor import CursorEnv
+from furniture_tpu_torch.models import compile_model, furniture_names
 from furniture_tpu_torch.physics import arm_megakernel, megakernel
+from furniture_tpu_torch.physics.engine import physics_tables
 from furniture_tpu_torch.physics.megakernel import (
+    CLUSTER_THREADS,
     KIND_FLOOR,
     KIND_PAD,
     KIND_ROBOT1,
@@ -25,6 +32,16 @@ from furniture_tpu_torch.physics.megakernel import (
     KIND_SAT,
     KIND_VERTEX,
     LANE_CONST_COLS,
+    MAX_CLUSTER,
+    MAX_SMEM,
+    ROUTE_CLUSTER,
+    ROUTE_REGS,
+    ROUTE_SMEM,
+    SEGMENT,
+    MegaPhysics,
+    block_words,
+    cluster_tables,
+    cluster_words,
     pack_slot,
     slot_tables,
 )
@@ -327,3 +344,117 @@ def test_lane_lists_of_a_made_up_model():
     assert ent[off[0] : off[1]].tolist() == [0 << 1, 2 << 1, (3 << 1) | 1]
     assert ent[off[2] : off[3]].tolist() == [1 << 1, 3 << 1, (2 << 1) | 1]
     assert nfloor.tolist() == [1, 0, 1]
+
+
+def _free_physics(name):
+    """Kernel 1's wrapper of a model on the CPU (its tables; nothing compiled)."""
+    return MegaPhysics(physics_tables(compile_model(name)), SimConfig(), "cpu")
+
+
+def test_route_of_every_model():
+    """Kernel 1's route for each of the 64 models, from its bytes alone
+    (``MegaPhysics.layout``): 8 run one lane a thread, 42 keep their lanes'
+    working set in one block's shared memory, and the 14 over that limit
+    take the cluster route, each on the fewest CTAs (here 2 to 5, never over
+    ``MAX_CLUSTER``) whose share of the working set fits ``MAX_SMEM``:
+    bed_dalselv_0270, just over one block, on 2, chair_balser_0115 on 3,
+    toy_table, the largest, on 5."""
+    routes, sizes = Counter(), {}
+    for name in furniture_names:
+        ph = _free_physics(name)
+        lay, sl = ph.layout, ph.slots
+        routes[lay.route] += 1
+        one_block = 4 * block_words(ph.P, ph.Kf, ph.Ke, sl["KS"], int(sl["b_off"][-1]), sl["lpt"] == 1)
+        assert lay.smem <= MAX_SMEM, name
+        if lay.route != ROUTE_CLUSTER:
+            assert ph.cluster is None and lay.cluster == 1 and lay.smem == one_block, name
+            assert (lay.route == ROUTE_REGS) == (sl["lpt"] == 1), name
+            continue
+        ct = ph.cluster
+        assert one_block > MAX_SMEM and 2 <= lay.cluster <= MAX_CLUSTER, name
+        assert (lay.threads, ct["C"]) == (CLUSTER_THREADS, lay.cluster), name
+        assert lay.smem == 4 * cluster_words(ph.P, ph.Kf, ct["KS"], CLUSTER_THREADS // SEGMENT,
+                                             ct["NBS"], ct["NJ"], lay.cluster), name
+        if lay.cluster > 2:   # one CTA fewer does not fit
+            fewer = cluster_tables(ph.part_a, ph.part_b, ph.lane_kind, ph.lane_const, ph._aux0,
+                                   np.zeros(ph.K, int), ph.Kf, ph.Ke, ph.P, CLUSTER_THREADS,
+                                   lay.cluster - 1, SEGMENT)
+            assert 4 * cluster_words(ph.P, ph.Kf, fewer["KS"], CLUSTER_THREADS // SEGMENT,
+                                     fewer["NBS"], fewer["NJ"], lay.cluster - 1) > MAX_SMEM, name
+        sizes[name] = lay.cluster
+    assert routes == {ROUTE_REGS: 8, ROUTE_SMEM: 42, ROUTE_CLUSTER: 14}
+    assert (sizes["bed_dalselv_0270"], sizes["chair_balser_0115"], sizes["toy_table"]) == (2, 3, 5)
+
+
+@pytest.mark.parametrize("name", ["chair_balser_0115", "toy_table"])
+def test_cluster_tables_replay_the_part_sums(name):
+    """The cluster route's tables hold every lane once and sum like the
+    lane-order lists: CTA r's slots are the r-th run of the cluster-wide
+    slot order, every lane with a b side has one entry in its CTA's own
+    buffer (ordered by b-side part, ``b_off``), each CTA's jobs cover its
+    segment partials and b entries once, each job within one part, and the
+    SAT gate's codes and lists point at the right lanes. Random per-lane a-
+    and b-side values replayed in float64 in the kernel's order (segments, b
+    entries, jobs, each part's jobs, the CTAs in rank order) give each part's
+    sum over its lane-order list ``part_ent``."""
+    ph = _free_physics(name)
+    ct, P = ph.cluster, ph.P
+    C, KS, lpt = ct["C"], ct["KS"], ct["lpt"]
+    nseg = CLUSTER_THREADS // SEGMENT
+    lane_of_slot = ct["lane_of_slot"]
+    assert lane_of_slot.shape == (C * KS,) and KS == CLUSTER_THREADS * lpt
+    used = lane_of_slot >= 0
+    assert np.array_equal(np.sort(lane_of_slot[used]), np.arange(ph.K))
+    rng = np.random.default_rng(0)
+    a_val, b_val = rng.standard_normal((ph.K, 7)), rng.standard_normal((ph.K, 7))
+    truth = np.zeros((P, 7))
+    for p in range(P):
+        ent = ph.part_ent[ph.part_off[p] : ph.part_off[p + 1]]
+        truth[p] = a_val[ent[(ent & 1) == 0] >> 1].sum(0) + b_val[ent[(ent & 1) == 1] >> 1].sum(0)
+    # a slot's thread (warp w, lane l, round r: slot (w * lpt + r) * 32 + l) and its segment
+    local = np.arange(KS)
+    seg_of_local = (local // 32 // lpt) * (32 // SEGMENT) + (local % 32) // SEGMENT
+    pa, pb, kind, b_idx = _unpack(ct["slot_i"][:, 0])
+    got = np.zeros((P, 7))
+    for r in range(C):
+        lanes = lane_of_slot[r * KS : (r + 1) * KS]
+        mine = lanes >= 0
+        entries = np.zeros((nseg + ct["NBS"], 7))
+        np.add.at(entries, seg_of_local[mine], a_val[lanes[mine]])
+        seg_part = np.full(nseg, -1)
+        seg_part[seg_of_local[mine]] = ph.part_a[lanes[mine]]
+        bi = b_idx[r * KS : (r + 1) * KS]
+        with_b = mine & (bi >= 0)
+        nb = int(ct["b_off"][r, -1])
+        assert np.array_equal(np.sort(bi[with_b]), np.arange(nb))
+        assert np.array_equal(np.asarray(ph.part_b)[lanes[with_b]] >= 0, np.ones(with_b.sum(), bool))
+        assert not np.any((np.asarray(ph.part_b)[lanes[mine]] >= 0) & (bi[mine] < 0))
+        entries[nseg + bi[with_b]] = b_val[lanes[with_b]]
+        b_part = np.full(nb, -1)
+        b_part[bi[with_b]] = np.asarray(ph.part_b)[lanes[with_b]]
+        assert np.all(np.diff(b_part) >= 0)
+        for p in range(P):
+            assert np.all(b_part[ct["b_off"][r, p] : ct["b_off"][r, p + 1]] == p)
+        covered = np.zeros(nseg + nb, int)
+        jo = ct["job_off"][r]
+        for p in range(P):
+            for w in ct["jobs"][r, jo[p] : jo[p + 1]]:
+                first, n = int(w) & 0xFFFF, int(w) >> 16
+                assert n > 0
+                covered[first : first + n] += 1
+                owner = [seg_part[e] if e < nseg else b_part[e - nseg] for e in range(first, first + n)]
+                assert set(owner) == {p}, (r, p)
+                got[p] += entries[first : first + n].sum(0)
+        # every segment of a part and every b entry is in exactly one job
+        assert np.all(covered[: nseg][seg_part >= 0] == 1) and np.all(covered[nseg:] == 1)
+        assert jo[-1] <= ct["NJ"] and jo[-1] <= CLUSTER_THREADS // 8
+        sat = ct["sat_list"][ct["sat_off"][r] : ct["sat_off"][r + 1]]
+        assert np.all(kind[r * KS + sat] == KIND_SAT)
+    assert np.allclose(got, truth, rtol=0, atol=1e-9)
+    assert ct["sat_off"][-1] == ph.Ke
+    # the SAT gate reads the 16 corner lanes of each SAT lane where they lie
+    code = ct["sat_corner"]
+    corner = lane_of_slot[(code >> 16) * KS + (code & 0xFFFF)]
+    for e in range(ph.Ke):
+        want = [ph.Kf + e * 8 + j for j in range(8)] + [ph.Kf + (ph.Ke + e) * 8 + j for j in range(8)]
+        assert corner[e].tolist() == want, e

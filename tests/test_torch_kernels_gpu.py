@@ -25,7 +25,9 @@ from furniture_tpu_torch.robots import kinematics as K
     "name,B",
     [pytest.param("table_lack_0825", 256, id="table_lack_0825"),
      pytest.param("chair_balser_0115", 256, id="chair_balser_0115"),
-     pytest.param("chair_balser_0115", 1024, id="chair_balser_0115-b1024")],
+     pytest.param("chair_balser_0115", 1024, id="chair_balser_0115-b1024"),
+     pytest.param("toy_table", 64, id="toy_table"),
+     pytest.param("bed_dalselv_0270", 64, id="bed_dalselv_0270")],
 )
 def test_free_part_kernel_matches_plain(name, B):
     """n = 5 substeps at B = 32 from a settled reset, free and with parts 0
@@ -34,9 +36,11 @@ def test_free_part_kernel_matches_plain(name, B):
     at n = 50; the welded pair at n = 50 within 1e-3 or 10x the plain
     version's own spread under 1e-7 of position noise, the larger (two parts
     welded where they lie apart make one body whose 50-substep motion is
-    chaotic). chair_balser_0115 (K = 4153) keeps its lane working set in the
-    global scratch buffer, table_lack in shared memory; B = 1024 is the
-    batch of the benchmark's cell on chair_balser."""
+    chaotic). table_lack keeps a lane a thread; chair_balser_0115 (K =
+    4153, 3 CTAs), toy_table (the largest model, 5 CTAs) and
+    bed_dalselv_0270 (just over one block's shared memory, 2 CTAs) take the
+    cluster route in every launch; B = 1024 is the batch of the benchmark's
+    cell on chair_balser."""
     dev = card()
     env = CursorEnv(EnvConfig(furniture_name=name), device=dev)
     gen = torch.Generator(device=dev)
@@ -54,10 +58,12 @@ def test_free_part_kernel_matches_plain(name, B):
         return env.reset_batch(B, gen), free, welded, gscale
 
     state, free, welded, gscale = staged(32)
-    launches = phys.launches
+    launches, cluster = phys.launches, phys.cluster_launches
     for group in (free, welded):
         assert kernel1_gap(phys, state.parts, group, gscale, 5) < 1e-4
     assert phys.launches == launches + 4
+    assert phys.cluster_launches - cluster == (4 if phys.layout.route == "cluster" else 0)
+    assert (phys.layout.route == "cluster") == (name != "table_lack_0825")
     state, free, welded, gscale = staged(B)
     parts = state.parts
     moving = parts._replace(lin_vel=parts.lin_vel + 0.05, ang_vel=parts.ang_vel + 0.1)
@@ -107,6 +113,43 @@ def test_free_part_kernel_sat_edge_lanes():
     assert int(edge_contacts(tt, start.pos, start.quat, group, slop, hit).mask.sum()) > 0
     for n in (1, 5):
         assert kernel1_gap(env.physics, start, group, gscale, n) < 1e-4, n
+
+
+@pytest.mark.gpu
+def test_cluster_route_repeats_bit_for_bit():
+    """chair_balser_0115 at B = 64 after a reset and 2 random steps, parts 0
+    and 1 welded: three launches of the cluster route give the same bits
+    (every sum in a fixed order, the CTAs' group partials added in rank
+    order, no float atomics), within 1e-4 of the plain version
+    after 5 substeps; the phase-clock build counts 39 block barriers a
+    substep (one after the frames, two a pass and one after each group half
+    but the last) and one cluster barrier (after the narrow phase; a pass's
+    partials go through mbarriers), and one cluster barrier more before the
+    CTAs leave; the card holds at least one cluster."""
+    dev = card()
+    env = CursorEnv(EnvConfig(furniture_name="chair_balser_0115"), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    B, P, phys = 64, env._P, env.physics
+    st = env.reset_batch(B, gen)
+    for _ in range(2):
+        st = env.step_batch(st, torch.rand((B, env.dof), generator=gen, device=dev) * 2 - 1)[0]
+    group = st.group.clone()
+    group[:, 1] = group[:, 0]
+    parts = PartState(*(t.contiguous() for t in st.parts))
+    gscale = torch.ones((B, P), device=dev)
+    ref = phys.plain_substeps(parts, group, gscale, 5)
+    runs = [phys.kernel_substeps(parts, group, gscale, 5) for _ in range(3)]
+    clocks = phys.phase_clocks(parts, group, gscale, 5)
+    torch.cuda.synchronize()
+    for a, b in zip(ref, runs[0]):
+        assert (a - b).abs().max().item() < 1e-4
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+    assert clocks.shape[0] == B and bool((clocks[:, :6] > 0).all())
+    assert bool((clocks[:, -1] == 5 * 39).all()) and bool((clocks[:, 6] == 5 + 1).all())
+    assert phys.cluster_launches == phys.launches
+    assert phys.resident_blocks() >= 1
 
 
 @pytest.mark.gpu
